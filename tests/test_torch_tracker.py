@@ -1,0 +1,135 @@
+"""Port parity for the slice as a whole: ``track_sequence`` and
+``track_sequences_batched`` of ``umetrack_torch`` (plain sampler, CPU)
+against the JAX tracker with the pool kernel in interpret mode and with the
+gather sampler, same weights, same synthetic sequence, small config."""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import synthetic
+from umetrack_tpu.models import init_model, make_model
+from umetrack_tpu.models.config import ModelConfig as JModelConfig
+from umetrack_tpu.models.umetrack import TemporalState as JTemporalState
+from umetrack_tpu.tracker import HandTracker as JHandTracker
+from umetrack_tpu.tracker import TrackerConfig as JTrackerConfig
+from umetrack_tpu.tracker.tracker import track_sequences_batched as jbatched
+from umetrack_tpu.tracker.types import TrackState as JTrackState
+from umetrack_torch.kinematics.hand import stack_hand_models
+from umetrack_torch.models import ModelConfig, UmeTrackNet, from_flax_variables
+from umetrack_torch.tracker import HandTracker, TrackerConfig, sequence_landmarks
+from umetrack_torch.tracker import tracker as port_tracker
+from umetrack_torch.tracker.types import CameraRig, FrameObservation
+from umetrack_torch.utils.synthetic import our_sequence
+
+SMALL = dict(
+    start_planes=8, backbone_blocks=(1, 1, 1, 1),
+    n_image_feature_channels=12, n_memory_channels=6,
+)
+T_FRAMES = 4
+
+
+def _check(ours, ref):
+    """The tolerances of tests/test_tracker.py:354-360: valid masks equal,
+    angles within 1e-3 rad, wrist translation within 0.1 mm."""
+    v = np.asarray(ref.valid)
+    np.testing.assert_array_equal(ours.valid.numpy(), v)
+    assert v.any() and not v.all()  # the confidence dropout is in the window
+    np.testing.assert_allclose(
+        ours.joint_angles.numpy()[v], np.asarray(ref.joint_angles)[v], atol=1e-3
+    )
+    np.testing.assert_allclose(
+        ours.wrist_xfs.numpy()[v][..., :3, 3], np.asarray(ref.wrist_xfs)[v][..., :3, 3], atol=0.1
+    )
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = JModelConfig(**SMALL)
+    jvars = jax.jit(lambda key: init_model(key, jcfg)[1])(jax.random.PRNGKey(5))
+    variables = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), jvars)
+    rng = np.random.default_rng(1)
+    variables["batch_stats"] = jax.tree_util.tree_map(
+        lambda a: (a + rng.random(a.shape) * 0.2).astype(np.float32), variables["batch_stats"]
+    )
+    cfg = ModelConfig(**SMALL)
+    model = UmeTrackNet(cfg)
+    model.load_state_dict(from_flax_variables(variables, cfg))
+    labels, images = synthetic.make_labels_dict(T_FRAMES, rng_seed=13, render=False)
+    return dict(
+        jmodel=make_model(jcfg),
+        jvars=jax.tree_util.tree_map(jnp.asarray, variables),
+        jseq=synthetic.our_sequence(labels, images),
+        tracker=HandTracker(model, device="cpu"),
+        seq=our_sequence(labels, images, "cpu"),
+    )
+
+
+@pytest.fixture(scope="module")
+def port_single(setup):
+    rig, seq, hand = setup["seq"]
+    return setup["tracker"].track_sequence(rig, seq, hand)
+
+
+@pytest.mark.parametrize("sampler", ["pallas_pool", "gather1d"])
+def test_track_sequence_matches_jax(setup, port_single, sampler):
+    ours, state = port_single
+    ref, ref_state = JHandTracker(
+        setup["jmodel"], setup["jvars"], JTrackerConfig(sampler=sampler)
+    ).track_sequence(*setup["jseq"])
+    _check(ours, ref)
+    np.testing.assert_array_equal(state.valid_history.numpy(), np.asarray(ref_state.valid_history))
+    np.testing.assert_allclose(
+        state.temporal.mem_features.numpy(),
+        np.moveaxis(np.asarray(ref_state.temporal.mem_features), -1, 1), atol=1e-3,
+    )
+    lm = sequence_landmarks(setup["seq"][2], ours.joint_angles, ours.wrist_xfs)
+    assert lm.shape == (T_FRAMES, 2, 21, 3) and torch.isfinite(lm).all()
+
+
+def test_track_sequences_batched_matches_jax(setup, port_single):
+    """S=2 copies of the sequence through the batched path: results
+    [T, S, 2, ...] match the JAX batched tracker (pool kernel, interpret
+    mode) and, per sequence, the port's own single-sequence run."""
+    jrig, jseq, jhand = setup["jseq"]
+    stack2 = lambda tree: jax.tree_util.tree_map(lambda a: jnp.stack([a, a]), tree)
+    jinit = JTrackState(
+        temporal=JTemporalState.zeros(4, setup["jmodel"].config),
+        valid_history=jnp.zeros((4,), bool),
+    )
+    ref, _ = jbatched(
+        setup["jmodel"], JTrackerConfig(sampler="pallas_pool"), setup["jvars"],
+        stack2(jrig), stack2(jseq), jinit, stack2(jhand),
+    )
+    rig, seq, hand = setup["seq"]
+    rigs = rig.map(lambda a: torch.stack([a, a]))
+    seqs = seq.map(lambda a: torch.stack([a, a]))
+    ours, _ = setup["tracker"].track_sequences_batched(rigs, seqs, stack_hand_models([hand, hand]))
+    assert ours.joint_angles.shape == (T_FRAMES, 2, 2, 22)
+    _check(ours, ref)
+    single, _ = port_single
+    for s in range(2):
+        np.testing.assert_array_equal(ours.valid[:, s].numpy(), single.valid.numpy())
+        np.testing.assert_allclose(
+            ours.joint_angles[:, s].numpy(), single.joint_angles.numpy(), atol=1e-5
+        )
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(setup, monkeypatch):
+    """With no GPU, the default device raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rig, seq, hand = setup["seq"]
+    tracker = setup["tracker"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_tracker.track_sequence(
+            tracker.model, tracker.config, rig, seq, tracker.init_state(), hand
+        )
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HandTracker(tracker.model)
+    with pytest.raises(ValueError, match="kernel"):
+        port_tracker.track_sequence(
+            tracker.model, TrackerConfig(sampler="kernel"), rig, seq,
+            tracker.init_state(), hand, device="cpu",
+        )
+    assert isinstance(rig, CameraRig) and isinstance(seq, FrameObservation)

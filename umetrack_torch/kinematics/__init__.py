@@ -1,0 +1,30 @@
+from . import hand, skinning
+from .hand import (
+    HandModel,
+    NUM_HANDS,
+    NUM_JOINTS_PER_HAND,
+    NUM_JOINT_FRAMES,
+    NUM_LANDMARKS_PER_HAND,
+    from_dict,
+    load_generic_hand_dict,
+    neutral_joint_angles,
+    scaled_hand_model,
+    stack_hand_models,
+)
+from .skinning import skin_landmarks
+
+__all__ = [
+    "hand",
+    "skinning",
+    "HandModel",
+    "NUM_HANDS",
+    "NUM_JOINTS_PER_HAND",
+    "NUM_JOINT_FRAMES",
+    "NUM_LANDMARKS_PER_HAND",
+    "from_dict",
+    "load_generic_hand_dict",
+    "neutral_joint_angles",
+    "scaled_hand_model",
+    "stack_hand_models",
+    "skin_landmarks",
+]

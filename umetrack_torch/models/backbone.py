@@ -1,0 +1,71 @@
+"""ResNet image backbone (NCHW), sized for 96x96 mono crops.
+
+Counterpart of ``umetrack_tpu/models/backbone.py``: stem conv + BN + ReLU +
+maxpool/2, four BasicBlock stages, then a 1x1 projection to the
+image-feature channels.  Submodule names follow the flax tree
+(``stem_conv``, ``stage0_block0.conv1``, ``proj_conv``, ...) so that
+``models/convert.py`` maps the JAX weights by a plain walk.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .config import ModelConfig
+
+BN_EPS = 1e-5
+
+
+class BasicBlock(nn.Module):
+    """conv3x3-BN-ReLU-conv3x3-BN + residual (with 1x1 downsample) -> ReLU."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 use_downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        if use_downsample:
+            self.downsample_conv = nn.Conv2d(in_planes, planes, 1, stride, bias=False)
+            self.downsample_bn = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.use_downsample = use_downsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.use_downsample:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class ResNetBackbone(nn.Module):
+    """Stem + stages + 1x1 projection; [N, 1, H, W] -> [N, C, H/16, W/16]."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.stem_conv = nn.Conv2d(1, cfg.start_planes, 3, padding=1, bias=True)
+        self.stem_bn = nn.BatchNorm2d(cfg.start_planes, eps=BN_EPS)
+        self.blocks = []
+        in_planes = cfg.start_planes
+        for si, (n_blocks, stride) in enumerate(zip(cfg.backbone_blocks, cfg.backbone_strides)):
+            planes = cfg.stage_out_planes[si]
+            for bi in range(n_blocks):
+                first = bi == 0
+                name = f"stage{si}_block{bi}"
+                self.add_module(name, BasicBlock(
+                    in_planes, planes, stride=stride if first else 1,
+                    use_downsample=first and (stride != 1 or cfg.stage_in_planes[si] != planes),
+                ))
+                self.blocks.append(name)
+                in_planes = planes
+        self.proj_conv = nn.Conv2d(in_planes, cfg.n_image_feature_channels, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.stem_bn(self.stem_conv(x)))
+        x = F.max_pool2d(x, 2, 2)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        return self.proj_conv(x)

@@ -1,0 +1,159 @@
+"""Image-pool bilinear warp: the hand-written CUDA kernel and its wrapper.
+
+Replaces ``pallas_bilinear_sample_pool`` (``umetrack_tpu/ops/pallas_resample.py``),
+the one TPU kernel on the tracker's main path: every warp of every frame in
+one launch, each warp sampling its own image of the pool.  The kernel is
+``csrc/warp_pool.cu``, compiled with ``nvcc`` for ``sm_90a`` at first use
+into ``umetrack_torch/_build/`` (keyed on a hash of the source and flags)
+and called through its plain C interface with ``ctypes``.
+
+:func:`warp_pool` launches the kernel for CUDA tensors and runs the plain
+version (:func:`~umetrack_torch.ops.resample.bilinear_sample_pool_plain`)
+for CPU tensors; ``warp_pool.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+from .resample import bilinear_sample_pool_plain
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "warp_pool.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+_THREADS = 256
+_MAX_GRID_Y = 65535
+
+_lib = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    return found
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/warp_pool.cu`` unless a library of the same source and
+    flags exists; returns its path.  ``verbose`` adds ``-Xptxas -v`` to a
+    build and prints the compiler's report (registers, spills)."""
+    with open(SOURCE, "rb") as fp:
+        key = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    out = os.path.join(BUILD_DIR, f"warp_pool_{key}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *flags, "-o", tmp, SOURCE],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        if verbose:
+            print(proc.stderr.strip())
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        fn = lib.warp_pool_launch
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(images: torch.Tensor, coords: torch.Tensor, src_idx: torch.Tensor):
+    if images.dim() != 3:
+        raise ValueError(f"images must be [M, H, W], got {tuple(images.shape)}")
+    if coords.dim() != 4 or coords.shape[-1] != 2:
+        raise ValueError(f"coords must be [Wn, h, w, 2], got {tuple(coords.shape)}")
+    if src_idx.dim() != 1 or src_idx.shape[0] != coords.shape[0]:
+        raise ValueError(
+            f"src_idx must be [Wn] with Wn={coords.shape[0]}, got {tuple(src_idx.shape)}"
+        )
+    if images.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"images must be uint8 or float32, got {images.dtype}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    if src_idx.dtype != torch.int32:
+        raise TypeError(f"src_idx must be int32, got {src_idx.dtype}")
+    if not (images.device == coords.device == src_idx.device):
+        raise ValueError(
+            f"tensors on different devices: {images.device}, {coords.device}, "
+            f"{src_idx.device}"
+        )
+    if not (images.is_contiguous() and coords.is_contiguous() and src_idx.is_contiguous()):
+        raise ValueError("images, coords and src_idx must be contiguous")
+    m, h, w = images.shape
+    if h < 2 or w < 2:
+        raise ValueError(f"images must be at least 2 x 2, got {h} x {w}")
+    if src_idx.numel() and bool(((src_idx < 0) | (src_idx >= m)).any()):
+        raise IndexError(f"src_idx outside [0, {m})")
+
+
+def warp_pool(
+    images: torch.Tensor,  # [M, H, W] uint8 or float32 image pool
+    coords: torch.Tensor,  # [Wn, h, w, 2] float32 per-warp (x, y)
+    src_idx: torch.Tensor,  # [Wn] int32 pool index per warp
+) -> torch.Tensor:  # [Wn, h, w] float32 on the pool's value scale
+    """Bilinear sample of ``images[src_idx[k]]`` at ``coords[k]`` for every
+    warp, 0 outside ``[0, W-2] x [0, H-2]``.  CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
+    _check(images, coords, src_idx)
+    if images.device.type == "cpu":
+        return bilinear_sample_pool_plain(images, coords, src_idx)
+    if images.device.type != "cuda":
+        raise ValueError(f"unsupported device {images.device}")
+    _, h, w = images.shape
+    wn, ch, cw = coords.shape[:3]
+    pixels = ch * cw
+    if -(-pixels // _THREADS) > _MAX_GRID_Y:
+        raise ValueError(f"{pixels} pixels per warp exceed the kernel's grid")
+    if coords.data_ptr() % 8:
+        raise ValueError("coords must be 8-byte aligned")
+    out = torch.empty((wn, ch, cw), dtype=torch.float32, device=images.device)
+    lib = _library()
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        err = lib.warp_pool_launch(
+            images.data_ptr(), int(images.dtype == torch.float32),
+            coords.data_ptr(), src_idx.data_ptr(), out.data_ptr(),
+            wn, pixels, h, w, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"warp_pool kernel launch failed: CUDA error {err}")
+    warp_pool.launches += 1
+    return out
+
+
+warp_pool.launches = 0

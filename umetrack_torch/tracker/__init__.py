@@ -1,0 +1,33 @@
+from .crops import gen_crop_set, landmarks_from_pose, static_crop_points_local
+from .tracker import (
+    HandTracker,
+    sequence_landmarks,
+    track_sequence,
+    track_sequences_batched,
+)
+from .types import (
+    CameraRig,
+    CropSet,
+    FrameObservation,
+    FrameResult,
+    TrackerConfig,
+    TrackState,
+)
+from .video import rig_from_labels
+
+__all__ = [
+    "gen_crop_set",
+    "landmarks_from_pose",
+    "static_crop_points_local",
+    "HandTracker",
+    "sequence_landmarks",
+    "track_sequence",
+    "track_sequences_batched",
+    "CameraRig",
+    "CropSet",
+    "FrameObservation",
+    "FrameResult",
+    "TrackerConfig",
+    "TrackState",
+    "rig_from_labels",
+]
