@@ -7,18 +7,33 @@ Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without a result line:
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
-2. the build of ``umetrack_torch/csrc/warp_pool.cu`` and its time;
+2. the build of ``umetrack_torch/csrc/warp_pool.cu`` and ``warp_image.cu``
+   (both ``nvcc`` runs started together, ``-Xptxas -v``) and its time;
 3. the image-pool warp kernel against its plain PyTorch version on the card,
    at the tracker's bench shape (64 sequences x 16 frames: 4096 pool images
    of 480 x 640, 4096 warps of 96 x 96, coordinates from the port's own
-   crop geometry) and on edge cases; median times, the byte bound;
+   crop geometry) and on edge cases; median times, the byte bound; then the
+   two single-image kernels at the same shape expressed per image;
 4. ``track_sequences_batched`` at the full width of ``ModelConfig()`` (f32),
    S=64, T=16, seeded random weights: one kernel launch per call, finite
    outputs, wall time per call and frames/s; then one call under
    torch.profiler (device time by kernel, the device's busy share);
-5. the same slice at S=2, T=4 on the CPU and on the card, TF32 off, held to
-   1e-3 rad and 0.1 mm;
-6. a ``{"kernels": [...]}`` line, then the last line
+5. the two single-image warp kernels (``warp_image_full``,
+   ``warp_image_windowed``) against their plain version: the torch_data
+   shape (512 images of 480 x 640, uint8 and f32, coordinate fields from
+   the port's preprocess geometry), 120 x 160 images (dispatch to the full
+   kernel), a flat list, the edge cases, scattered / empty / mixed blocks;
+   windowed == full bit for bit everywhere; median times and byte bounds;
+6. the torch_data inference app ``run`` over a synthetic on-disk tree (32
+   sequences x 16 frames x 2 views of 480 x 640) at full width: one
+   windowed-kernel launch per batch, finite error, sequences/s and frames/s,
+   where a batch's time goes, one batch under torch.profiler; then a
+   120 x 160 tree (one full-kernel launch per batch);
+7. card against CPU, TF32 off: the tracker at S=2, T=4 (1e-3 rad, 0.1 mm),
+   the torch_data ``_run_batch`` on 2 sequences of T=4 (0.1 mm, crops within
+   2e-3), and on the card the tracker with ``sampler="kernel_win"`` against
+   the pool sampler;
+8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the repository around it; without either it exits
@@ -28,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -36,9 +52,14 @@ sys.path.insert(0, HERE)
 S_BENCH, T_BENCH = 64, 16
 S_SMALL, T_SMALL = 2, 4
 TRACK_CALLS = 3
+TD_SEQS, TD_BATCH, TD_T, TD_V = 32, 16, 16, 2  # the torch_data slice
+TD_H, TD_W = 480, 640
 KERNEL_ATOL = 2e-2  # on the 0-255 scale, the JAX tests' bound
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
+OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
+NO_LIBRARY = ("no single PyTorch call computes this function (grid_sample zero-pads "
+              "per tap, not per floor cell, and takes float images and normalised grids)")
 
 
 def check(cond, msg):
@@ -69,6 +90,17 @@ def median_ms(fn, reps, warmup=2):
     return times[len(times) // 2]
 
 
+def wall_ms(fn):
+    """Host-clock milliseconds of ``fn()``, device work included."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
 def phase_device():
     import torch
 
@@ -85,14 +117,23 @@ def phase_device():
 
 
 def phase_build():
+    """Both sources at once (one nvcc each), then both libraries loaded."""
     import importlib
+    from concurrent.futures import ThreadPoolExecutor
 
-    mod = importlib.import_module("umetrack_torch.ops.warp_pool")
+    from umetrack_torch.ops import _build
+
+    wp_mod = importlib.import_module("umetrack_torch.ops.warp_pool")
+    wi_mod = importlib.import_module("umetrack_torch.ops.warp_image")
     t0 = time.perf_counter()
-    path = mod.build(verbose=True)
-    mod._library()
-    log(f"[build] {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.2f} s")
-    return mod
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        paths = list(pool.map(lambda name: _build.build(name, verbose=True),
+                              (wp_mod.NAME, wi_mod.NAME)))
+    wp_mod._library()
+    wi_mod._library()
+    log(f"[build] {', '.join(os.path.relpath(p, HERE) for p in paths)} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return wp_mod, wi_mod
 
 
 def touched_source_bytes(pool, coords, src_idx):
@@ -107,6 +148,21 @@ def touched_source_bytes(pool, coords, src_idx):
     for off in (0, 1, w, w + 1):
         mask[base + off] = True
     return int(mask.sum()) * pool.element_size()
+
+
+def byte_bound(pool, coords, src_idx):
+    """(bound_ms, bound_by, text): coordinates read once, output written
+    once, and the distinct source bytes touched, at the card's memory rate;
+    against the sample arithmetic at the card's f32 rate."""
+    taps = touched_source_bytes(pool, coords, src_idx)
+    n_pix = coords.numel() // 2
+    moved = coords.numel() * 4 + n_pix * 4 + taps
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_pix * OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    text = (f"{bound_by}: coords {coords.numel() * 4 / 1e6:.1f} MB + out {n_pix * 4 / 1e6:.1f} MB "
+            f"+ touched taps {taps / 1e6:.1f} MB at 3.35 TB/s")
+    return bound_ms, bound_by, text
 
 
 def edge_cases(device):
@@ -170,20 +226,196 @@ def phase_kernel(wp_mod, rigs, seqs, hands):
 
     ms = median_ms(lambda: warp_pool(pool, coords, src), reps=20)
     plain_ms = median_ms(lambda: bilinear_sample_pool_plain(pool, coords, src), reps=5, warmup=1)
-    taps = touched_source_bytes(pool, coords, src)
-    n_pix = coords.shape[0] * coords.shape[1] * coords.shape[2]
-    moved = coords.numel() * 4 + n_pix * 4 + taps
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_pix * 17 / F32_OPS_PER_S * 1e3  # ~17 f32 ops per sample
-    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    bound_ms, bound_by, text = byte_bound(pool, coords, src)
     log(f"[kernel] warp_pool {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}: coords {coords.numel() * 4 / 1e6:.1f} MB + out {n_pix * 4 / 1e6:.1f} MB "
-        f"+ touched taps {taps / 1e6:.1f} MB at 3.35 TB/s), roofline share {bound_ms / ms:.3f}")
-    log("[kernel] library_ms null: no single PyTorch call computes this function "
-        "(grid_sample zero-pads per tap, not per floor cell, and needs a per-warp image)")
-    del pool, coords, src
-    return dict(max_abs_err=max(err, edge_err), ms=ms, plain_ms=plain_ms,
+        f"({text}), roofline share {bound_ms / ms:.3f}")
+    log(f"[kernel] library_ms null: {NO_LIBRARY}; it would also need a per-warp image")
+    kern = dict(max_abs_err=max(err, edge_err), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+    return kern, (pool, coords, src)
+
+
+# ---- the two single-image kernels ------------------------------------------
+
+
+def block_stats(wi_mod, images, coords):
+    """How the windowed kernel's blocks of 256 consecutive pixels fall:
+    (blocks, blocks with no valid sample, blocks whose box fits the window),
+    reckoned from the coordinates the way the kernel does."""
+    import torch
+    from umetrack_torch.ops.resample import _sample_prep
+
+    h, w = images.shape[-2:]
+    n = images.shape[0] if images.dim() == 3 else 1
+    valid, x0, y0, _, _ = _sample_prep(h, w, coords.reshape(n, -1, 2))
+    pad = -valid.shape[1] % 256
+    big = torch.iinfo(torch.int64).max
+
+    def blocks(a, fill):
+        return torch.cat([a, a.new_full((n, pad), fill)], dim=1).reshape(n, -1, 256)
+
+    v = blocks(valid, False)
+    lo = lambda a: torch.where(v, blocks(a, 0), big).amin(dim=-1)
+    hi = lambda a: torch.where(v, blocks(a, 0), -big).amax(dim=-1)
+    any_valid = v.any(dim=-1)
+    fits = any_valid & (hi(x0) - lo(x0) + 2 <= wi_mod.WIN_COLS) & (hi(y0) - lo(y0) + 2 <= wi_mod.WIN_ROWS)
+    return v.shape[0] * v.shape[1], int((~any_valid).sum()), int(fits.sum())
+
+
+def compare_image_kernels(wi_mod, images, coords, label):
+    """Both kernels against the plain version within KERNEL_ATOL, windowed
+    == full bit for bit, launch counters as the dispatch rule says.
+    Returns the max abs error."""
+    import torch
+    from umetrack_torch.ops.resample import bilinear_sample_plain
+
+    full_fn, win_fn = wi_mod.warp_image_full, wi_mod.warp_image_windowed
+    h, w = images.shape[-2:]
+    small = h < wi_mod.WIN_ROWS or w < wi_mod.WIN_COLS
+    before = (full_fn.launches, win_fn.launches)
+    full = full_fn(images, coords)
+    win = win_fn(images, coords)
+    plain = bilinear_sample_plain(images, coords)
+    torch.cuda.synchronize()
+    got = (full_fn.launches - before[0], win_fn.launches - before[1])
+    check(got == ((2, 0) if small else (1, 1)),
+          f"{label}: launches (full, windowed) {got} for a {h} x {w} image")
+    check(full.shape == coords.shape[:-1], f"{label}: output shape {tuple(full.shape)}")
+    check(bool(torch.isfinite(full).all()), f"{label}: non-finite output")
+    err = float((full - plain).abs().max())
+    check(err <= KERNEL_ATOL, f"{label}: full kernel vs plain {err}")
+    check(bool(torch.equal(win, full)), f"{label}: windowed != full bit for bit")
+    n_blocks, n_empty, n_fit = block_stats(wi_mod, images, coords)
+    log(f"[image-kernels] {label}: images {tuple(images.shape)} {str(images.dtype)[6:]}, "
+        f"coords {tuple(coords.shape)}, max_abs_err {err:.3e}, windowed == full, "
+        f"blocks {n_blocks} (empty {n_empty}, fit {n_fit}, direct {n_blocks - n_empty - n_fit}), "
+        f"nonzero {float((plain != 0).float().mean()):.3f}, launches full+{got[0]} windowed+{got[1]}")
+    return err, (n_blocks, n_empty, n_fit)
+
+
+def time_image_kernels(wi_mod, images, coords, label, card, plain_reps=5):
+    """Median CUDA-event times of both kernels and the plain version, and
+    the byte bound, at one shape."""
+    import torch
+    from umetrack_torch.ops.resample import bilinear_sample_plain
+
+    n = images.shape[0]
+    bound_ms, bound_by, text = byte_bound(
+        images, coords, torch.arange(n, dtype=torch.int32, device=images.device))
+    plain_ms = median_ms(lambda: bilinear_sample_plain(images, coords), reps=plain_reps, warmup=1)
+    out = {}
+    for name in ("warp_image_full", "warp_image_windowed"):
+        fn = getattr(wi_mod, name)
+        ms = median_ms(lambda: fn(images, coords), reps=20)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[image-kernels] {label}: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({text}), roofline share {bound_ms / ms:.3f} [{card}]")
+    return out
+
+
+def torchdata_batch(n_seqs, t, h, w, seed0=0):
+    """Parsed host sequences of the synthetic torch_data kind."""
+    from umetrack_torch.data.transform import parse_raw_buffers
+    from umetrack_torch.utils.synthetic import make_torchdata_sample
+
+    return [
+        parse_raw_buffers(*make_torchdata_sample(
+            rng_seed=seed0 + i, t=t, v=TD_V, h=h, w=w, hand_idx=i % 2))
+        for i in range(n_seqs)
+    ]
+
+
+def torchdata_warp_operands(raws, device="cuda"):
+    """(images [B*T*V, H, W] uint8, coords [B*T*V, 96, 96, 2]) as
+    ``preprocess_sequence`` hands them to the sampler."""
+    from umetrack_torch.data import bundles
+    from umetrack_torch.data.transform import crop_homographies
+    from umetrack_torch.ops.resample import homography_coords
+
+    raw = bundles.to_device(bundles.collate(raws), device)
+    _, _, xf = crop_homographies(raw)
+    images = raw.images.reshape(-1, *raw.images.shape[-2:])
+    return images, homography_coords(xf.reshape(-1, 4, 4), (96, 96))
+
+
+def phase_image_kernels(wi_mod, wp_mod, pool_operands, card):
+    import torch
+
+    g = torch.Generator().manual_seed(11)
+    errs = []
+    run = lambda *a: errs.append(compare_image_kernels(wi_mod, *a)[0])
+
+    # (a) the torch_data shape, coordinates from the preprocess geometry
+    images, coords = torchdata_warp_operands(torchdata_batch(TD_BATCH, TD_T, TD_H, TD_W))
+    check(images.shape == (TD_BATCH * TD_T * TD_V, TD_H, TD_W) and images.dtype == torch.uint8,
+          f"torch_data images {tuple(images.shape)} {images.dtype}")
+    run(images, coords, "torch_data uint8")
+    images_f = images.to(torch.float32) + 0.25  # fractional content: f32 is sampled exactly
+    run(images_f, coords, "torch_data f32")
+    times = time_image_kernels(wi_mod, images, coords, "torch_data uint8", card)
+    time_image_kernels(wi_mod, images_f, coords, "torch_data f32", card)
+    del images_f
+
+    # (c) 120 x 160 frames: smaller than the window, the full kernel both
+    # ways; the shape at which the main path runs the full kernel
+    small, small_coords = torchdata_warp_operands(torchdata_batch(TD_BATCH, TD_T, 120, 160, seed0=40))
+    run(small, small_coords, "120 x 160 uint8")
+    run(small.to(torch.float32), small_coords, "120 x 160 f32")
+    times["warp_image_full"] = time_image_kernels(
+        wi_mod, small, small_coords, "120 x 160 uint8", card)["warp_image_full"]
+
+    # (d) one image, a flat list that fills no block
+    flat = (torch.rand((1001, 2), generator=g) * torch.tensor([700.0, 540.0]) - 30.0).cuda()
+    run(images[3], flat, "flat list [1001, 2]")
+
+    # (e) the pool kernel's edge cases, per image
+    for i, (p, c, s) in enumerate(edge_cases("cuda")):
+        per_slot = p.index_select(0, s.to(torch.int64))
+        run(per_slot, c, f"edge case {i}")
+        if i < 2:
+            out = wi_mod.warp_image_windowed(per_slot, c)
+            check(bool((out[0, 0, [0, 1, 2, 3, 4, 8, 9, 10]] == 0).all()),
+                  f"edge case {i}: invalid samples not 0")
+
+    # (f) blocks that cannot fit, blocks with no valid sample, and a mix
+    sub = images[:8]
+    scattered = (torch.rand((8, 96, 96, 2), generator=g) * torch.tensor([660.0, 500.0]) - 10.0).cuda()
+    _, (nb, ne, nf) = compare_image_kernels(wi_mod, sub, scattered, "scattered")
+    check(nf == 0 and ne == 0, f"scattered: {nf} blocks fit, {ne} empty")
+    empty = coords[:8].clone()
+    empty[0] = -1.0
+    empty[1] = float("nan")
+    empty[2, :48] = 1e9
+    empty[3, 10:40] = float("-inf")
+    _, (nb, ne, nf) = compare_image_kernels(wi_mod, sub, empty, "empty blocks")
+    check(ne > 0 and nf > 0, f"empty blocks: {ne} empty, {nf} fit")
+    mix = coords[:8].clone()
+    mix[0, :32] = scattered[0, :32]  # these blocks take the direct path
+    mix[1, 40:] = -1.0  # these stage nothing
+    holes = torch.rand((8, 96, 96), generator=g).cuda() < 0.1
+    mix[..., 0] = torch.where(holes, torch.full_like(mix[..., 0], float("nan")), mix[..., 0])
+    mix[2, ::7, ::5] = -1.0
+    _, (nb, ne, nf) = compare_image_kernels(wi_mod, sub, mix, "mixed blocks")
+    check(ne > 0 and nf > 0 and nb - ne - nf > 0, f"mixed: {nb} blocks, {ne} empty, {nf} fit")
+    del images, coords, sub
+
+    # (b) the tracker's bench shape expressed per image: every slot samples
+    # its own copy of its source view; also held against the pool kernel
+    pool, pcoords, src = pool_operands
+    per_slot = pool.index_select(0, src.to(torch.int64))
+    run(per_slot, pcoords, "tracker bench per image")
+    diff = float((wi_mod.warp_image_windowed(per_slot, pcoords)
+                  - wp_mod.warp_pool(pool, pcoords, src)).abs().max())
+    check(diff <= KERNEL_ATOL, f"windowed kernel vs pool kernel: {diff}")
+    log(f"[image-kernels] tracker bench per image: windowed vs pool kernel max diff {diff:.3e}")
+    time_image_kernels(wi_mod, per_slot, pcoords, "tracker bench per image", card, plain_reps=3)
+    log(f"[image-kernels] library_ms null: {NO_LIBRARY}")
+    for v in times.values():
+        v["max_abs_err"] = max(errs)
+    return times
+
+
+# ---- the tracker slice ------------------------------------------------------
 
 
 def phase_slice(wp_mod, model, rigs, seqs, hands, card):
@@ -204,7 +436,7 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
         times.append(time.perf_counter() - t0)
         check(wp_mod.warp_pool.launches == before + 1,
               f"warp_pool launches per call: {wp_mod.warp_pool.launches - before}")
-    launches = wp_mod.warp_pool.launches
+    n_launches = wp_mod.warp_pool.launches
     check(res.joint_angles.shape == (t, s, 2, 22), f"angles shape {tuple(res.joint_angles.shape)}")
     check(res.wrist_xfs.shape == (t, s, 2, 4, 4), f"wrist shape {tuple(res.wrist_xfs.shape)}")
     check(bool(torch.isfinite(res.joint_angles).all() & torch.isfinite(res.wrist_xfs).all()),
@@ -214,34 +446,28 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
     check(0 < n_valid, "no valid hands")
     med = sorted(times[1:])[len(times[1:]) // 2]
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pool_warp_operands(TrackerConfig(), rigs, seqs, hands)
-    torch.cuda.synchronize()
-    geom = time.perf_counter() - t0
+    geom, _ = wall_ms(lambda: pool_warp_operands(TrackerConfig(), rigs, seqs, hands))
     log(f"[slice] track_sequences_batched S={s} T={t} full ModelConfig() f32: "
         f"{med * 1e3:.1f} ms/call median of {TRACK_CALLS} (first call {times[0] * 1e3:.1f} ms), "
-        f"{s * t / med:.1f} frames/s, crop geometry alone {geom * 1e3:.1f} ms, "
+        f"{s * t / med:.1f} frames/s, crop geometry alone {geom:.1f} ms, "
         f"valid hands {n_valid}/{res.valid.numel()}, peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    return launches
+    return n_launches
 
 
-def phase_profile(model, rigs, seqs, hands, card, top=15):
-    """One warmed-up ``track_sequences_batched`` call under torch.profiler:
-    device time by kernel, the share of the warp kernel, and the device's
+def phase_profile(fn, label, kernel_name, card, top=15):
+    """One warmed-up call of ``fn`` under torch.profiler: device time by
+    kernel, the share of the kernels named ``kernel_name``, and the device's
     busy share of the call's wall time (one stream, so kernels do not
     overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from umetrack_torch.tracker import HandTracker
 
-    tracker = HandTracker(model, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tracker.track_sequences_batched(rigs, seqs, hands)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -256,39 +482,217 @@ def phase_profile(model, rigs, seqs, hands, card, top=15):
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     check(total > 0, "the profiler saw no device time")
-    warp = sum(r[0] for r in rows if "warp_pool_kernel" in r[2])
-    log(f"[profile] one call: wall {wall_us / 1e3:.1f} ms, device {total / 1e3:.1f} ms, "
-        f"busy share {total / wall_us:.3f}, warp_pool_kernel {warp / 1e3:.3f} ms "
+    warp = sum(r[0] for r in rows if kernel_name in r[2])
+    check(warp > 0, f"{label}: no {kernel_name} in the profile")
+    log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device {total / 1e3:.1f} ms, "
+        f"busy share {total / wall_us:.3f}, {kernel_name} {warp / 1e3:.3f} ms "
         f"({warp / total:.4f} of device time) [{card}]")
     for dev, count, key in rows[:top]:
         log(f"[profile] {dev / 1e3:9.3f} ms {dev / total:6.3f} x{count:<5d} {key[:100]}")
 
 
-def phase_cpu_vs_card(model_cpu, model_cuda):
+# ---- the torch_data slice ---------------------------------------------------
+
+
+def reset_launches(wp_mod, wi_mod):
+    wp_mod.warp_pool.launches = 0
+    wi_mod.warp_image_full.launches = 0
+    wi_mod.warp_image_windowed.launches = 0
+
+
+def launches(wp_mod, wi_mod):
+    return (wp_mod.warp_pool.launches, wi_mod.warp_image_full.launches,
+            wi_mod.warp_image_windowed.launches)
+
+
+def batch_breakdown(model, root, card):
+    """Where one batch's time goes, stage by stage on the host clock with a
+    synchronise after each (the app itself overlaps read + parse with the
+    device through its prefetch threads)."""
+    import numpy as np
     import torch
-    from umetrack_torch.tracker import HandTracker
+    from umetrack_torch.apps import run_inference_torch_data as app
+    from umetrack_torch.data import IdxBinFile, bundles, find_torchdata_folders
+    from umetrack_torch.data.transform import (
+        crop_homographies, parse_raw_buffers, preprocess_sequence)
+    from umetrack_torch.ops.resample import bilinear_sample, homography_coords
+
+    folder = find_torchdata_folders(root, ["mono", "labels"])[0]
+    files = {f: IdxBinFile.open(os.path.join(folder, f + ".torch.idx")) for f in ("mono", "labels")}
+    t0 = time.perf_counter()
+    monos = [files["mono"][i] for i in range(TD_BATCH)]  # zero-copy views of the mmap
+    t_mono = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    labels = [files["labels"][i] for i in range(TD_BATCH)]  # msgpack decode
+    t_labels = (time.perf_counter() - t0) * 1e3
+    label_kb = sum(len(files["labels"].frame_bytes(i)) for i in range(TD_BATCH)) / 1e3
+    t0 = time.perf_counter()
+    raws = [parse_raw_buffers(m, l) for m, l in zip(monos, labels)]
+    t_parse = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = bundles.collate(raws)
+    t_collate = (time.perf_counter() - t0) * 1e3
+    t_upload, raw = wall_ms(lambda: bundles.to_device(batch, "cuda"))
+
+    def geometry():
+        _, _, xf = crop_homographies(raw)
+        return homography_coords(xf.reshape(-1, 4, 4), (96, 96))
+
+    geometry()
+    t_geom, coords = wall_ms(geometry)
+    images = raw.images.reshape(-1, TD_H, TD_W)
+    t_warp = median_ms(lambda: bilinear_sample(images, coords), reps=10)
+    preprocess_sequence(raw)
+    t_pre, (model_input, target) = wall_ms(lambda: preprocess_sequence(raw))
+    step_valid = torch.ones((TD_BATCH, TD_T), dtype=torch.bool, device="cuda")
+    evaluate = lambda: app.eval_batch(
+        model, model_input, target.gt_joint_angles, target.gt_wrist_xfs, 2, step_valid)
+    evaluate()
+    t_model, err = wall_ms(evaluate)
+    check(bool(torch.isfinite(err).all()), "non-finite error in the breakdown batch")
+    mb = sum(np.asarray(r.images).nbytes for r in raws) / 1e6
+    log(f"[torch_data] one batch of {TD_BATCH} x {TD_T} x {TD_V} frames ({mb:.1f} MB uint8), by stage: "
+        f"mono views {t_mono:.1f} ms, label decode (msgpack, {label_kb:.0f} KB) {t_labels:.1f} ms, "
+        f"parse to numpy {t_parse:.1f} ms, collate {t_collate:.1f} ms, "
+        f"upload {t_upload:.1f} ms, preprocess {t_pre:.1f} ms (geometry {t_geom:.1f} ms, "
+        f"warp kernel {t_warp:.4f} ms), model loop + error {t_model:.1f} ms [{card}]")
+    return raws
+
+
+def phase_torchdata_slice(wp_mod, wi_mod, model, card):
+    import math
+
+    import torch
+    from umetrack_torch.apps import run_inference_torch_data as app
+    from umetrack_torch.data import Split
+    from umetrack_torch.utils.synthetic import write_torchdata_corpus
+
+    n_batches = TD_SEQS // TD_BATCH
+    with tempfile.TemporaryDirectory(prefix="umetrack_torch_data_") as root:
+        big, small = os.path.join(root, "big"), os.path.join(root, "small")
+        t0 = time.perf_counter()
+        write_torchdata_corpus(big, n_test=TD_SEQS, t=TD_T, v=TD_V, h=TD_H, w=TD_W)
+        write_torchdata_corpus(small, n_test=TD_SEQS, t=TD_T, v=TD_V, h=120, w=160)
+        log(f"[torch_data] wrote 2 x {TD_SEQS} sequences x {TD_T} frames x {TD_V} views "
+            f"({TD_H} x {TD_W} and 120 x 160) in {time.perf_counter() - t0:.1f} s")
+
+        # the main path: counts to 0, the app's run, counts read
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(wp_mod, wi_mod)
+        first_ms, res = wall_ms(lambda: app.run([big], model, batch_size=TD_BATCH))
+        counts = launches(wp_mod, wi_mod)
+        check(set(res) == {Split.TEST} and math.isfinite(res[Split.TEST]),
+              f"run over the {TD_H} x {TD_W} tree: {res}")
+        check(counts == (0, 0, n_batches),
+              f"{TD_H} x {TD_W} tree: launches (pool, full, windowed) {counts} in {n_batches} batches")
+        walls = [wall_ms(lambda: app.run([big], model, batch_size=TD_BATCH))[0] for _ in range(3)]
+        med = sorted(walls)[1]
+        log(f"[torch_data] run() over {TD_SEQS} sequences, {TD_H} x {TD_W}, batch {TD_BATCH}, full "
+            f"ModelConfig() f32: {med:.1f} ms/run median of 3 ({', '.join(f'{w:.1f}' for w in walls)}; "
+            f"first run {first_ms:.1f} ms), {med / n_batches:.1f} ms/batch, "
+            f"{TD_SEQS / med * 1e3:.1f} sequences/s, {TD_SEQS * TD_T / med * 1e3:.1f} frames/s, "
+            f"one warp_image_windowed launch per batch, mean error {res[Split.TEST]:.1f} mm "
+            f"(random weights: finite, no more), peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+        raws = batch_breakdown(model, big, card)
+        phase_profile(lambda: app._run_batch(model, raws), "one torch_data batch (_run_batch)",
+                      "warp_image_windowed_kernel", card, top=10)
+        del raws
+
+        reset_launches(wp_mod, wi_mod)
+        small_ms, res_small = wall_ms(lambda: app.run([small], model, batch_size=TD_BATCH))
+        counts_small = launches(wp_mod, wi_mod)
+        check(math.isfinite(res_small[Split.TEST]), f"run over the 120 x 160 tree: {res_small}")
+        check(counts_small == (0, n_batches, 0),
+              f"120 x 160 tree: launches (pool, full, windowed) {counts_small}")
+        log(f"[torch_data] run() over {TD_SEQS} sequences, 120 x 160: {small_ms:.1f} ms, "
+            f"{TD_SEQS / small_ms * 1e3:.1f} sequences/s, one warp_image_full launch per batch [{card}]")
+    return counts[2], counts_small[1]
+
+
+# ---- card against CPU -------------------------------------------------------
+
+
+class tf32_off:
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def track_diff(a, b):
+    check(bool((a.valid == b.valid).all()), "valid masks differ")
+    v = a.valid
+    check(bool(v.any()), "no valid hands")
+    da = float((a.joint_angles[v] - b.joint_angles[v]).abs().max())
+    dw = float((a.wrist_xfs[v][..., :3, 3] - b.wrist_xfs[v][..., :3, 3]).abs().max())
+    return da, dw
+
+
+def phase_cpu_vs_card(model_cpu, model_cuda, wi_mod):
+    from umetrack_torch.tracker import HandTracker, TrackerConfig
     from umetrack_torch.utils.synthetic import make_sequences
 
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        rigs, seqs, hands = make_sequences(S_SMALL, T_SMALL, seed=100, device="cpu")
+    rigs, seqs, hands = make_sequences(S_SMALL, T_SMALL, seed=100, device="cpu")
+    on_card = (rigs.to("cuda"), seqs.to("cuda"), hands.to("cuda"))
+    with tf32_off():
         res_cpu, _ = HandTracker(model_cpu, device="cpu").track_sequences_batched(rigs, seqs, hands)
-        res_gpu, _ = HandTracker(model_cuda, device="cuda").track_sequences_batched(
-            rigs.to("cuda"), seqs.to("cuda"), hands.to("cuda"))
-        res_gpu = res_gpu.to("cpu")
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    v = res_cpu.valid
-    check(bool((v == res_gpu.valid).all()), "valid masks differ between CPU and card")
-    check(bool(v.any()), "no valid hands in the CPU-vs-card run")
-    da = float((res_cpu.joint_angles[v] - res_gpu.joint_angles[v]).abs().max())
-    dw = float((res_cpu.wrist_xfs[v][..., :3, 3] - res_gpu.wrist_xfs[v][..., :3, 3]).abs().max())
+        res_gpu, _ = HandTracker(model_cuda, device="cuda").track_sequences_batched(*on_card)
+        before = wi_mod.warp_image_windowed.launches
+        res_win, _ = HandTracker(
+            model_cuda, TrackerConfig(sampler="kernel_win"), device="cuda"
+        ).track_sequences_batched(*on_card)
+        check(wi_mod.warp_image_windowed.launches == before + 1,
+              "sampler='kernel_win': not one warp_image_windowed launch per call")
+    da, dw = track_diff(res_cpu, res_gpu.to("cpu"))
     log(f"[cpu-vs-card] S={S_SMALL} T={T_SMALL} TF32 off: valid equal, "
         f"max angle diff {da:.3e} rad (<= 1e-3), max wrist diff {dw:.3e} mm (<= 0.1)")
     check(da <= 1e-3, f"angles differ by {da} rad")
     check(dw <= 0.1, f"wrist translations differ by {dw} mm")
+    da, dw = track_diff(res_gpu, res_win)
+    log(f"[cpu-vs-card] on the card, sampler='kernel_win' against the pool sampler: "
+        f"max angle diff {da:.3e} rad (<= 1e-3), max wrist diff {dw:.3e} mm (<= 0.1)")
+    check(da <= 1e-3 and dw <= 0.1, f"kernel_win vs pool: {da} rad, {dw} mm")
+
+
+def phase_torchdata_cpu_vs_card(model_cpu, model_cuda):
+    import numpy as np
+    from umetrack_torch.apps.run_inference_torch_data import _run_batch
+    from umetrack_torch.data import bundles
+    from umetrack_torch.data.transform import preprocess_sequence
+
+    raws = torchdata_batch(S_SMALL, T_SMALL, TD_H, TD_W, seed0=200)
+    with tf32_off():
+        err_cpu = _run_batch(model_cpu, raws)
+        err_gpu = _run_batch(model_cuda, raws)
+    batch = bundles.collate(raws)
+    crops_cpu = preprocess_sequence(bundles.to_device(batch, "cpu"))[0].left_images
+    crops_gpu = preprocess_sequence(bundles.to_device(batch, "cuda"))[0].left_images.cpu()
+    d_err = float(np.abs(err_cpu - err_gpu).max())
+    d_img = float((crops_cpu - crops_gpu).abs().max())
+    log(f"[cpu-vs-card] torch_data _run_batch, {S_SMALL} sequences x T={T_SMALL}, TF32 off: "
+        f"per-sample errors differ by {d_err:.3e} mm (<= 0.1), left_images by {d_img:.3e} (<= 2e-3)")
+    check(np.isfinite(err_gpu).all(), "non-finite error on the card")
+    check(d_err <= 0.1, f"per-sample errors differ by {d_err} mm")
+    check(d_img <= 2e-3, f"left_images differ by {d_img}")
+
+
+def kernel_entry(name, source, replaces, n_launches, numbers):
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": n_launches, "max_abs_err": numbers["max_abs_err"],
+        "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
+        "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
+        "library_ms": None,
+    }
 
 
 def main():
@@ -297,10 +701,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = phase_device()
-    wp_mod = phase_build()
+    wp_mod, wi_mod = phase_build()
 
     from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.tracker import HandTracker
     from umetrack_torch.utils.synthetic import make_sequences
 
     t0 = time.perf_counter()
@@ -309,27 +715,36 @@ def main():
     log(f"[inputs] {S_BENCH} sequences x {T_BENCH} frames, images {tuple(seqs.images.shape)} "
         f"{seqs.images.dtype}, made in {time.perf_counter() - t0:.1f} s")
 
-    kern = phase_kernel(wp_mod, rigs, seqs, hands)
+    pool_kern, pool_operands = phase_kernel(wp_mod, rigs, seqs, hands)
+    image_kern = phase_image_kernels(wi_mod, wp_mod, pool_operands, card)
+    del pool_operands
+    torch.cuda.empty_cache()
+
     model_cuda = make_model(ModelConfig(), seed=0, device="cuda")
-    launches = phase_slice(wp_mod, model_cuda, rigs, seqs, hands, card)
-    phase_profile(model_cuda, rigs, seqs, hands, card)
+    pool_launches = phase_slice(wp_mod, model_cuda, rigs, seqs, hands, card)
+    tracker = HandTracker(model_cuda, device="cuda")
+    phase_profile(lambda: tracker.track_sequences_batched(rigs, seqs, hands),
+                  "one track_sequences_batched call", "warp_pool_kernel", card)
     del rigs, seqs, hands
     torch.cuda.empty_cache()
-    phase_cpu_vs_card(make_model(ModelConfig(), seed=0, device="cpu"), model_cuda)
 
-    log(json.dumps({"kernels": [{
-        "name": "warp_pool",
-        "route": "cuda",
-        "source": "umetrack_torch/csrc/warp_pool.cu",
-        "replaces": "umetrack_tpu/ops/pallas_resample.py:243",
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
-        "library_ms": None,
-    }]}))
+    win_launches, full_launches = phase_torchdata_slice(wp_mod, wi_mod, model_cuda, card)
+
+    model_cpu = make_model(ModelConfig(), seed=0, device="cpu")
+    phase_cpu_vs_card(model_cpu, model_cuda, wi_mod)
+    phase_torchdata_cpu_vs_card(model_cpu, model_cuda)
+
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    log(json.dumps({"kernels": [
+        kernel_entry("warp_pool", "umetrack_torch/csrc/warp_pool.cu",
+                     "umetrack_tpu/ops/pallas_resample.py:243", pool_launches, pool_kern),
+        kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",
+                     "umetrack_tpu/ops/pallas_resample.py:174", win_launches,
+                     image_kern["warp_image_windowed"]),
+        kernel_entry("warp_image_full", "umetrack_torch/csrc/warp_image.cu",
+                     "umetrack_tpu/ops/pallas_resample.py:68", full_launches,
+                     image_kern["warp_image_full"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

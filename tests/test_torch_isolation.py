@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``umetrack_torch`` and not
-``chip_smoke.py`` imports JAX, flax, cv2 or the JAX package; and the
-kernel wrapper takes the plain version for CPU tensors."""
+``chip_smoke.py`` imports JAX, flax, cv2, msgpack (the port has its own
+codec) or the JAX package; and the kernel wrappers take the plain version
+for CPU tensors."""
 import ast
 import importlib
 import os
@@ -8,11 +9,14 @@ import os
 import pytest
 import torch
 
+from umetrack_torch.ops import bilinear_sample
+from umetrack_torch.ops import warp_image as warp_image_module
+
 # the package re-exports the wrapper under the module's own name
 warp_pool_module = importlib.import_module("umetrack_torch.ops.warp_pool")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "umetrack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "msgpack", "umetrack_tpu")
 
 
 def _port_sources():
@@ -58,3 +62,28 @@ def test_warp_pool_dispatches_cpu_tensors_to_plain(monkeypatch):
     assert out.shape == (2, 3, 4)
     assert calls == [torch.device("cpu")]
     assert warp_pool_module.warp_pool.launches == before  # no kernel launch
+
+
+@pytest.mark.parametrize("name", ["warp_image_full", "warp_image_windowed"])
+def test_warp_image_dispatches_cpu_tensors_to_plain(monkeypatch, name):
+    calls = []
+
+    def plain(image, coords):
+        calls.append(image.device)
+        return torch.zeros(coords.shape[:-1])
+
+    monkeypatch.setattr(warp_image_module, "bilinear_sample_plain", plain)
+    wrapper = getattr(warp_image_module, name)
+    before = (warp_image_module.warp_image_full.launches,
+              warp_image_module.warp_image_windowed.launches)
+    out = wrapper(torch.zeros((2, 480, 640), dtype=torch.uint8), torch.zeros((2, 3, 4, 2)))
+    assert out.shape == (2, 3, 4)
+    assert calls == [torch.device("cpu")]
+    assert (warp_image_module.warp_image_full.launches,
+            warp_image_module.warp_image_windowed.launches) == before  # no kernel launch
+
+
+@pytest.mark.parametrize("method", ["kernel_full", "kernel_win"])
+def test_kernel_sampler_on_cpu_tensor_raises(method):
+    with pytest.raises(ValueError, match="CUDA"):
+        bilinear_sample(torch.zeros((8, 8), dtype=torch.uint8), torch.zeros((3, 2)), method)

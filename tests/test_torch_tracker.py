@@ -116,6 +116,32 @@ def test_track_sequences_batched_matches_jax(setup, port_single):
         )
 
 
+def test_per_slot_image_warp_matches_pool_path(setup, port_single):
+    """``sampler="plain_image"`` warps every slot from its own copy of its
+    source view through the single-image sampler (``_warp_crops``): the
+    same crops as the pool path, so the same track."""
+    rig, seq, hand = setup["seq"]
+    tracker = HandTracker(setup["tracker"].model, TrackerConfig(sampler="plain_image"), device="cpu")
+    calls = []
+    real = port_tracker._warp_crops
+    port_tracker._warp_crops = lambda *a: calls.append(a[3]) or real(*a)
+    try:
+        ours, state = tracker.track_sequence(rig, seq, hand)
+    finally:
+        port_tracker._warp_crops = real
+    assert calls == ["plain"]  # one sampler call for all slots of all frames
+    pool, pool_state = port_single
+    v = pool.valid.numpy()
+    np.testing.assert_array_equal(ours.valid.numpy(), v)
+    np.testing.assert_allclose(ours.joint_angles.numpy()[v], pool.joint_angles.numpy()[v], atol=1e-5)
+    np.testing.assert_allclose(
+        ours.wrist_xfs.numpy()[v][..., :3, 3], pool.wrist_xfs.numpy()[v][..., :3, 3], atol=0.01
+    )
+    np.testing.assert_allclose(
+        state.temporal.mem_features.numpy(), pool_state.temporal.mem_features.numpy(), atol=1e-5
+    )
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked(setup, monkeypatch):
     """With no GPU, the default device raises instead of falling back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -132,4 +158,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(setup, monkeypatch):
             tracker.model, TrackerConfig(sampler="kernel"), rig, seq,
             tracker.init_state(), hand, device="cpu",
         )
+    for name in ("kernel_win", "kernel_full"):
+        with pytest.raises(ValueError, match="CUDA"):
+            TrackerConfig(sampler=name).resolved_sampler(torch.device("cpu"))
+    with pytest.raises(ValueError, match="unknown sampler"):
+        TrackerConfig(sampler="pallas_win").resolved_sampler(torch.device("cpu"))
     assert isinstance(rig, CameraRig) and isinstance(seq, FrameObservation)

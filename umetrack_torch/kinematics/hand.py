@@ -105,6 +105,25 @@ def scaled_hand_model(hand: HandModel, multiplier) -> HandModel:
     )
 
 
+def mirrored_hand_model(hand: HandModel, to_mirror) -> HandModel:
+    """Mirror right hands into left-hand canonical space: where
+    ``to_mirror`` (a boolean mask over the leading batch dims) is true, the
+    rotation axes' y/z components and the rest positions' x components are
+    negated."""
+    ref = hand.joint_rotation_axes
+    m = torch.as_tensor(to_mirror, dtype=torch.bool, device=ref.device)[..., None, None]
+
+    def flip(a, sign):
+        return torch.where(m, a * torch.tensor(sign, dtype=a.dtype, device=a.device), a)
+
+    return dataclasses.replace(
+        hand,
+        joint_rotation_axes=flip(hand.joint_rotation_axes, [1.0, -1.0, -1.0]),
+        joint_rest_positions=flip(hand.joint_rest_positions, [-1.0, 1.0, 1.0]),
+        landmark_rest_positions=flip(hand.landmark_rest_positions, [-1.0, 1.0, 1.0]),
+    )
+
+
 def neutral_joint_angles(hand: HandModel, lower_factor: float = 0.5) -> torch.Tensor:
     """Mid-joint-limit pose used for crop-point generation."""
     lim = hand.joint_limits

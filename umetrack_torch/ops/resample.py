@@ -1,16 +1,21 @@
-"""Fisheye -> pinhole coordinate fields and the plain image-pool sampler.
+"""Image warping: coordinate fields, the samplers and their plain versions.
 
 Counterpart of ``umetrack_tpu/ops/resample.py``:
 
+- :func:`resample_images` is the dst-pixel homography warp of the
+  torch_data path: homography -> coordinates -> one batched sampler call;
 - :func:`fisheye_to_pinhole_coords` is the per-pixel unproject (pinhole
-  crop) -> world -> project (fisheye) field, batched over any leading dims;
-- :func:`bilinear_sample_pool_plain` is the plain PyTorch version of the
-  image-pool warp kernel (``ops/warp_pool.py``): the 4-tap flat gather of
-  ``_bilinear_gather1d`` with the shared ``_sample_prep`` rule.
+  crop) -> world -> project (fisheye) field, batched over any leading dims,
+  and :func:`warp_fisheye_to_pinhole` samples one view through it;
+- :func:`bilinear_sample` picks the sampler (table in its docstring);
+- :func:`bilinear_sample_plain` and :func:`bilinear_sample_pool_plain` are
+  the plain PyTorch versions of the CUDA kernels (``ops/warp_image.py``,
+  ``ops/warp_pool.py``): the 4-tap flat gather of ``_bilinear_gather1d``
+  with the shared ``_sample_prep`` rule.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,6 +64,93 @@ def bilinear_sample_pool_plain(
     return torch.where(valid, out, torch.zeros_like(out))
 
 
+def bilinear_sample_plain(
+    image: torch.Tensor,  # [H, W] or [N, H, W] uint8 or float32
+    coords: torch.Tensor,  # [..., 2] or [N, ..., 2] (x, y) source coords
+) -> torch.Tensor:  # coords.shape[:-1] float32, on the image's value scale
+    """Plain version of the single-image warp kernels: bilinear sample of
+    the image (of image ``n`` at ``coords[n]`` when batched); samples
+    outside ``[0, W-2] x [0, H-2]`` are 0."""
+    images = image if image.dim() == 3 else image[None]
+    n = images.shape[0]
+    out = bilinear_sample_pool_plain(
+        images, coords.reshape(n, 1, -1, 2),
+        torch.arange(n, device=images.device),
+    )
+    return out.reshape(coords.shape[:-1])
+
+
+SAMPLERS = ("plain", "kernel_full", "kernel_win")
+
+
+def bilinear_sample(
+    image: torch.Tensor,  # [H, W] or [N, H, W] uint8 or float32
+    coords: torch.Tensor,  # [..., 2] or [N, ..., 2] float32 (x, y)
+    method: Optional[str] = None,
+) -> torch.Tensor:  # coords.shape[:-1] float32
+    """Bilinear sampling with zero outside ``[0, W-2] x [0, H-2]``: a sample
+    is valid only when its floor cell has all four neighbours inside the
+    image.  The samplers, beside the JAX package's names for them:
+
+    ===============  ======================================================
+    ``method``       ``umetrack_tpu`` sampler
+    ===============  ======================================================
+    ``plain``        ``gather1d`` (and ``gather2d``, the same gather
+                     indexed in two dimensions)
+    ``kernel_full``  ``pallas`` (and ``matmul``, its form outside Pallas)
+    ``kernel_win``   ``pallas_win``, ``pallas_win2``, ``pallas_win_cm``
+                     (tile shapes of the one windowed TPU kernel)
+    ===============  ======================================================
+
+    ``None`` takes ``kernel_win`` for CUDA tensors and ``plain`` for CPU
+    tensors; a kernel name with a CPU tensor raises."""
+    from .warp_image import warp_image_full, warp_image_windowed
+
+    on_cuda = image.device.type == "cuda"
+    name = method or ("kernel_win" if on_cuda else "plain")
+    if name not in SAMPLERS:
+        raise ValueError(f"unknown sampler {name!r}: use one of {SAMPLERS}")
+    if name == "plain":
+        return bilinear_sample_plain(image, coords)
+    if not on_cuda:
+        raise ValueError(f"sampler {name!r} needs CUDA tensors; use 'plain' on the CPU")
+    kernel = warp_image_windowed if name == "kernel_win" else warp_image_full
+    return kernel(image, coords)
+
+
+def homography_coords(
+    resample_xfs: torch.Tensor,  # [N, 4, 4] dst-pixel -> src-pixel homography
+    out_size: Tuple[int, int],  # (height, width)
+) -> torch.Tensor:  # [N, h, w, 2] float32 source (x, y) per dst pixel
+    """Source-pixel coordinate fields of per-image pixel homographies, which
+    take homogeneous dst pixels (u, v, 1) to src pixels."""
+    h_out, w_out = out_size
+    dtype, device = resample_xfs.dtype, resample_xfs.device
+    py, px = torch.meshgrid(
+        torch.arange(h_out, dtype=dtype, device=device),
+        torch.arange(w_out, dtype=dtype, device=device),
+        indexing="ij",
+    )
+    grid = torch.stack([px, py, torch.ones_like(px)], dim=-1)  # [h, w, 3]
+    r = resample_xfs[:, 0:3, 0:3]
+    t = resample_xfs[:, 0:3, 3]
+    pts = torch.einsum("nij,hwj->nhwi", r, grid) + t[:, None, None, :]
+    return (pts[..., 0:2] / pts[..., 2:3]).to(torch.float32).contiguous()
+
+
+def resample_images(
+    images: torch.Tensor,  # [N, H, W] uint8 or float32
+    resample_xfs: torch.Tensor,  # [N, 4, 4] dst-pixel -> src-pixel homography
+    out_size: Tuple[int, int],  # (height, width)
+    method: Optional[str] = None,
+) -> torch.Tensor:  # [N, h, w] float32 on the images' value scale
+    """Warp ``images`` through per-image pixel homographies (the
+    K_src @ E_src @ E_dst^-1 @ K_dst^-1 chain of the crop math): one
+    sampler call for all N images."""
+    coords = homography_coords(resample_xfs, out_size)
+    return bilinear_sample(images.contiguous(), coords, method)
+
+
 def fisheye_to_pinhole_coords(
     dst_intrinsics: torch.Tensor,  # [..., 3, 3] crop pinhole K
     dst_T_world_from_eye: torch.Tensor,  # [..., 4, 4]
@@ -104,3 +196,16 @@ def fisheye_to_pinhole_coords(
     win = q * src_cam.f[..., None, None, :] + src_cam.c[..., None, None, :]
     invalid = src_eye[..., 2:3] < 0
     return torch.where(invalid, torch.full_like(win, -1.0), win)
+
+
+def warp_fisheye_to_pinhole(
+    image: torch.Tensor,  # [H, W] or [N, H, W]
+    dst_intrinsics: torch.Tensor,  # [3, 3] or [N, 3, 3]
+    dst_T_world_from_eye: torch.Tensor,  # [4, 4] or [N, 4, 4]
+    src_cam: Fisheye62Camera,  # fields with the same batch dims
+    out_size: Tuple[int, int],
+    method: Optional[str] = None,
+) -> torch.Tensor:  # [h, w] or [N, h, w]
+    """Warp fisheye views into their crop cameras (one sampler call)."""
+    coords = fisheye_to_pinhole_coords(dst_intrinsics, dst_T_world_from_eye, src_cam, out_size)
+    return bilinear_sample(image.contiguous(), coords.to(torch.float32).contiguous(), method)

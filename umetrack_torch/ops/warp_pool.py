@@ -3,9 +3,8 @@
 Replaces ``pallas_bilinear_sample_pool`` (``umetrack_tpu/ops/pallas_resample.py``),
 the one TPU kernel on the tracker's main path: every warp of every frame in
 one launch, each warp sampling its own image of the pool.  The kernel is
-``csrc/warp_pool.cu``, compiled with ``nvcc`` for ``sm_90a`` at first use
-into ``umetrack_torch/_build/`` (keyed on a hash of the source and flags)
-and called through its plain C interface with ``ctypes``.
+``csrc/warp_pool.cu``, built at first use and loaded with ``ctypes`` by
+``ops/_build.py``.
 
 :func:`warp_pool` launches the kernel for CUDA tensors and runs the plain
 version (:func:`~umetrack_torch.ops.resample.bilinear_sample_pool_plain`)
@@ -14,82 +13,26 @@ for CPU tensors; ``warp_pool.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from . import _build
 from .resample import bilinear_sample_pool_plain
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "warp_pool.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+NAME = "warp_pool"
 _THREADS = 256
 _MAX_GRID_Y = 65535
-
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    return found
-
-
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/warp_pool.cu`` unless a library of the same source and
-    flags exists; returns its path.  ``verbose`` adds ``-Xptxas -v`` to a
-    build and prints the compiler's report (registers, spills)."""
-    with open(SOURCE, "rb") as fp:
-        key = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
-    out = os.path.join(BUILD_DIR, f"warp_pool_{key}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr.strip())
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+_SIGNATURES = {
+    "warp_pool_launch": (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ),
+}
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.warp_pool_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.library(NAME, _SIGNATURES)
 
 
 def _check(images: torch.Tensor, coords: torch.Tensor, src_idx: torch.Tensor):

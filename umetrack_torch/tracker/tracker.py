@@ -28,10 +28,15 @@ from ..models.umetrack import (
     UmeTrackNet,
     memory_motion_transform,
 )
-from ..ops.resample import bilinear_sample_pool_plain, fisheye_to_pinhole_coords
+from ..ops.resample import (
+    bilinear_sample,
+    bilinear_sample_pool_plain,
+    fisheye_to_pinhole_coords,
+)
 from ..ops.warp_pool import warp_pool
 from .crops import gather_cameras, gen_crop_set, landmarks_from_pose, static_crop_points_local
 from .types import (
+    IMAGE_SAMPLERS,
     M_TO_MM,
     MM_TO_M,
     CameraRig,
@@ -87,6 +92,18 @@ def _pool_inputs(
     return images.reshape(f * n, h, w), flat_coords, src_global
 
 
+def _warp_crops(
+    pool: torch.Tensor,  # [M, H, W]
+    coords: torch.Tensor,  # [Wn, h, w, 2]
+    src_idx: torch.Tensor,  # [Wn]
+    method: str,
+) -> torch.Tensor:  # [Wn, h, w]
+    """Per-slot single-image warp: every slot samples its own copy of its
+    source view, all slots in one call of a single-image sampler."""
+    per_slot = pool.index_select(0, src_idx.to(torch.int64))
+    return bilinear_sample(per_slot, coords, method)
+
+
 def _pool_warp_frames(
     images: torch.Tensor,  # [F, N, H, W]
     coords: torch.Tensor,  # [F, 2*V, h, w, 2]
@@ -97,7 +114,9 @@ def _pool_warp_frames(
     """ONE sampler call for every warp of every frame against the F*N
     source views."""
     pool, flat_coords, src_global = _pool_inputs(images, coords, src_cam_idx)
-    if sampler == "kernel":
+    if sampler in IMAGE_SAMPLERS:
+        out = _warp_crops(pool, flat_coords, src_global, IMAGE_SAMPLERS[sampler])
+    elif sampler == "kernel":
         out = warp_pool(pool, flat_coords, src_global)
     else:
         out = bilinear_sample_pool_plain(pool, flat_coords, src_global)

@@ -17,7 +17,10 @@ from ..models.umetrack import TemporalState
 MM_TO_M = 0.001
 M_TO_MM = 1000.0
 
-SAMPLERS = ("kernel", "plain")
+# Pool samplers (one call over the image pool) and per-slot single-image
+# samplers, the latter mapped to their ``ops.resample.bilinear_sample`` names.
+IMAGE_SAMPLERS = {"kernel_win": "kernel_win", "kernel_full": "kernel_full", "plain_image": "plain"}
+SAMPLERS = ("kernel", "plain") + tuple(IMAGE_SAMPLERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +30,10 @@ class TrackerConfig:
     ``sampler`` picks the crop warp: ``"kernel"`` (the CUDA image-pool
     kernel, ``ops/warp_pool.py``) or ``"plain"`` (its plain PyTorch
     version).  ``None`` takes the kernel on CUDA and the plain version on
-    the CPU, the only one there."""
+    the CPU.  ``"kernel_win"``, ``"kernel_full"`` and ``"plain_image"``
+    warp every slot from its own copy of its source view through the
+    single-image samplers instead (``ops/warp_image.py`` and their plain
+    version): the same crops by another route."""
 
     num_crop_points: int = 63  # 21 (gt) / 42 (+neutral) / 63 (+open)
     enable_memory: bool = True
@@ -42,8 +48,10 @@ class TrackerConfig:
         name = self.sampler or ("kernel" if device.type == "cuda" else "plain")
         if name not in SAMPLERS:
             raise ValueError(f"unknown sampler {name!r}: use one of {SAMPLERS}")
-        if name == "kernel" and device.type != "cuda":
-            raise ValueError("sampler 'kernel' needs CUDA tensors; use 'plain' on the CPU")
+        if name.startswith("kernel") and device.type != "cuda":
+            raise ValueError(
+                f"sampler {name!r} needs CUDA tensors; use 'plain' or 'plain_image' on the CPU"
+            )
         return name
 
 

@@ -5,16 +5,26 @@ A 4-camera fisheye rig around a hand-sized workspace, GT poses animated
 from the generic hand model (scipy rotations), and smooth-noise images made
 with ``torch.nn.functional.interpolate(mode="bicubic")``.  The hands are
 not rendered into the images: the tracker's crops, warps and model run on
-the noise all the same.
+the noise all the same.  :func:`make_torchdata_sample` and
+:func:`write_torchdata_corpus` make the same kind of data in the torch_data
+schema (pinhole views, msgpack labels, idx/bin files on disk).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
 from .._device import resolve_device
-from ..kinematics.hand import from_dict, load_generic_hand_dict, stack_hand_models
+from ..kinematics.hand import (
+    from_dict,
+    load_generic_hand_dict,
+    mirrored_hand_model,
+    stack_hand_models,
+)
+from ..kinematics.skinning import skin_landmarks
 from ..tracker.types import CameraRig, FrameObservation
 from ..tracker.video import rig_from_labels
 
@@ -182,3 +192,108 @@ def make_sequences(s: int, t: int, seed: int = 0, device=None):
     seqs = stack([p[1] for p in parts], FrameObservation)
     hands = stack_hand_models([p[2] for p in parts])
     return rigs, seqs, hands
+
+
+def scaled_hand_dict(hand_dict: dict, scale: float) -> dict:
+    """Uniformly scale a hand-model dict's rest geometry."""
+    out = dict(hand_dict)
+    for key in ("joint_rest_positions", "landmark_rest_positions"):
+        out[key] = (np.asarray(hand_dict[key], np.float32) * scale).tolist()
+    base = hand_dict.get("hand_scale")
+    out["hand_scale"] = float(base if base is not None else 1.0) * scale
+    return out
+
+
+def mirrored_gt_landmarks(hand_dict, angles, wrists, is_right) -> np.ndarray:
+    """World landmarks [T, 21, 3] (mm) in the torch_data convention: skin
+    the per-sample mirrored hand model."""
+    hand = mirrored_hand_model(from_dict(hand_dict), bool(is_right))
+    return skin_landmarks(
+        hand, torch.tensor(np.asarray(angles, np.float32)),
+        torch.tensor(np.asarray(wrists, np.float32)),
+    ).numpy()
+
+
+def make_torchdata_sample(rng_seed=0, t=3, v=2, h=120, w=160, hand_idx=1, hand_scale=None):
+    """A synthetic raw torch_data sample ``(mono [T, V, H, W] uint8, labels)``
+    in the msgpack label schema: pinhole views aimed at the hand near the
+    origin, mm units, smooth-noise frames (the hand is not drawn), GT motion
+    from :func:`make_gt_motion`, and ``enclosing_points`` = the 63 crop
+    points (GT + neutral + open pose landmarks).  The focal length grows
+    with the frame width so the hand fills the same share of any size."""
+    rng = np.random.default_rng(rng_seed)
+    generic_dict = load_generic_hand_dict()
+    hand_dict = generic_dict if hand_scale is None else scaled_hand_dict(generic_dict, hand_scale)
+
+    motion_angles, motion_wrists, _ = make_gt_motion(rng, t, hand_dict)
+    angles = motion_angles[:, hand_idx]  # [t, 22]
+    wrist = motion_wrists[:, hand_idx]  # [t, 4, 4]
+
+    # Aim the views at the hand's mean position so it stays inside the frames.
+    center = wrist[:, :3, 3].mean(axis=0)
+    cam_poses = make_camera_poses(target=center)[:v]  # [V, 4, 4] mm
+    extr = np.stack([np.linalg.inv(p).astype(np.float32) for p in cam_poses])  # world->eye
+    extr = np.tile(extr, (t, 1, 1, 1))
+
+    intr = np.tile(np.eye(3, dtype=np.float32), (t, v, 1, 1))
+    intr[..., 0, 0] = intr[..., 1, 1] = 1.25 * w
+    intr[..., 0, 2] = (w - 1) / 2
+    intr[..., 1, 2] = (h - 1) / 2
+    solved_angles = angles + rng.normal(0, 0.05, size=(t, 22)).astype(np.float32)
+
+    limits = np.asarray(hand_dict["joint_limits"], np.float32)
+    neutral = np.broadcast_to((limits[:, 0] + limits[:, 1]) / 2, angles.shape)
+    is_right = hand_idx == 1
+    enclosing = np.concatenate(
+        [
+            mirrored_gt_landmarks(hand_dict, pose, wrist, is_right)
+            for pose in (angles, neutral, np.zeros_like(angles))
+        ],
+        axis=1,
+    ).astype(np.float32)  # [t, 63, 3]
+    mono = smooth_images(rng, t, n=v, h=h, w=w).numpy()
+
+    labels = {
+        "extrinsics": extr.tolist(),
+        "intrinsics": intr.tolist(),
+        "enclosing_points": enclosing.tolist(),
+        "hand": [float(hand_idx)] * t,
+        "hand_model": hand_dict,
+        "wrist": wrist.tolist(),
+        "joint_angles": angles.tolist(),
+        "solved_wrist_xfs": wrist.tolist(),
+        "solved_joint_angles": solved_angles.tolist(),
+        "generic_hand_model": generic_dict,
+        "pinch": [0.0] * t,
+    }
+    return mono, labels
+
+
+def write_torchdata_corpus(
+    root: str, n_train: int = 0, n_test: int = 8, t: int = 16, v: int = 2,
+    h: int = 120, w: int = 160, seed0: int = 0,
+) -> dict:
+    """Write a synthetic torch_data corpus to disk (``training`` and
+    ``testing`` folders under ``root/synthetic/``, one idx/bin item per
+    sequence), alternating hands and varying the GT hand scale per
+    sequence.  Returns {split name: folder}."""
+    from ..data.idxbin import write_idxbin
+
+    out = {}
+    for split, n, base in (("training", n_train, 0), ("testing", n_test, 50_000)):
+        if n == 0:
+            continue
+        monos, labels_list = [], []
+        for i in range(n):
+            scale = float(np.random.default_rng(seed0 + base + i).uniform(0.85, 1.15))
+            mono, labels = make_torchdata_sample(
+                rng_seed=seed0 + base + i, t=t, v=v, h=h, w=w,
+                hand_idx=i % 2, hand_scale=scale,
+            )
+            monos.append(mono)
+            labels_list.append(labels)
+        folder = os.path.join(root, "synthetic", split)
+        write_idxbin(os.path.join(folder, "mono"), monos)
+        write_idxbin(os.path.join(folder, "labels"), labels_list, msgpack_objects=True)
+        out[split] = folder
+    return out
