@@ -8,12 +8,16 @@ exits non-zero without a result line:
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of ``umetrack_torch/csrc/warp_pool.cu`` and ``warp_image.cu``
-   (both ``nvcc`` runs started together, ``-Xptxas -v``) and its time;
+   with their shared header (both ``nvcc`` runs started together,
+   ``-Xptxas -v`` condensed to a line per kernel) and its time;
 3. the image-pool warp kernel against its plain PyTorch version on the card,
    at the tracker's bench shape (64 sequences x 16 frames: 4096 pool images
    of 480 x 640, 4096 warps of 96 x 96, coordinates from the port's own
-   crop geometry) and on edge cases; median times, the byte bound; then the
-   two single-image kernels at the same shape expressed per image;
+   crop geometry) and on edge cases (crops that take the scalar path, pools
+   that cannot be staged, misaligned coordinate views), the path taken
+   checked each time; the time of a call of the wrapper (median of single
+   calls) and of the kernel alone (launches back to back), the byte bound
+   and the streaming floor (``stream_ms``);
 4. ``track_sequences_batched`` at the full width of ``ModelConfig()`` (f32),
    S=64, T=16, seeded random weights: one kernel launch per call, finite
    outputs, wall time per call and frames/s; then one call under
@@ -22,8 +26,11 @@ exits non-zero without a result line:
    ``warp_image_windowed``) against their plain version: the torch_data
    shape (512 images of 480 x 640, uint8 and f32, coordinate fields from
    the port's preprocess geometry), 120 x 160 images (dispatch to the full
-   kernel), a flat list, the edge cases, scattered / empty / mixed blocks;
-   windowed == full bit for bit everywhere; median times and byte bounds;
+   kernel), a flat list, the edge cases, scattered / empty / mixed blocks,
+   images whose row pitch cannot be staged, misaligned coordinate views;
+   windowed == full bit for bit everywhere and == the pool kernel per slot;
+   times as in phase 3, byte bounds, and the tiled kernel's staged form
+   against its unstaged form on the same data;
 6. the torch_data inference app ``run`` over a synthetic on-disk tree (32
    sequences x 16 frames x 2 views of 480 x 640) at full width: one
    windowed-kernel launch per batch, finite error, sequences/s and frames/s,
@@ -190,47 +197,156 @@ def edge_cases(device):
     return cases
 
 
-def phase_kernel(wp_mod, rigs, seqs, hands):
+BURST = 40  # calls made back to back by ``burst_ms``
+
+
+def burst_ms(fn, n):
+    """Mean over ``n`` calls made back to back between one pair of CUDA
+    events: free of the per-call event and host jitter that a median of
+    single calls carries."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn, reps=20):
+    """Mean device time of the port's own kernels (names holding ``warp_``)
+    over ``reps`` calls of ``fn`` under torch.profiler: the kernel alone,
+    whatever the host takes to make a launch (at the smaller shapes a call
+    from Python takes as long as the kernel runs, so launches made back to
+    back would time the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "warp_" in e.key:
+            dev = getattr(e, "self_device_time_total", None)
+            total_us += e.self_cuda_time_total if dev is None else dev
+            count += e.count
+    # the profiler may drop a launch at either end of its window
+    check(reps - 2 <= count <= reps and total_us > 0,
+          f"the profiler saw {count} kernel launches in {reps} calls")
+    return total_us / count / 1e3
+
+
+def stream_floor_ms(coords):
+    """(sum_ms, cast_ms): two single PyTorch passes that read the coordinates
+    and write an output-sized 4-byte tensor, touching no image: what streaming
+    the kernel's two big operands costs on this card.  ``coords.sum(-1)`` is
+    a reduction kernel; the cast of each (x, y) pair, viewed as one 8-byte
+    integer, to 4 bytes is a plain elementwise pass over the same bytes."""
+    import torch
+
+    pairs = coords.view(torch.int64)
+    return (burst_ms(lambda: coords.sum(-1), BURST),
+            burst_ms(lambda: pairs.to(torch.int32), BURST))
+
+
+def misaligned_view(coords, offset_floats):
+    """A contiguous copy of ``coords`` that starts ``offset_floats`` floats
+    past an aligned allocation."""
+    import torch
+
+    buf = torch.empty(coords.numel() + offset_floats, dtype=coords.dtype, device=coords.device)
+    view = buf[offset_floats:].view(coords.shape)
+    view.copy_(coords)
+    return view
+
+
+def phase_kernel(wp_mod, rigs, seqs, hands, card):
     import torch
     from umetrack_torch.ops.resample import bilinear_sample_pool_plain
     from umetrack_torch.tracker import TrackerConfig
     from umetrack_torch.tracker.tracker import pool_warp_operands
 
     warp_pool = wp_mod.warp_pool
-    pool, coords, src = pool_warp_operands(TrackerConfig(), rigs, seqs, hands)
-    log(f"[kernel] bench shape: pool {tuple(pool.shape)} {pool.dtype}, "
-        f"coords {tuple(coords.shape)}, src {tuple(src.shape)}")
-    out_k = warp_pool(pool, coords, src)
-    out_p = bilinear_sample_pool_plain(pool, coords, src)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    check(err <= KERNEL_ATOL, f"kernel vs plain at bench shape: {err}")
-    frac_valid = float((out_p != 0).float().mean())
-    log(f"[kernel] bench shape max_abs_err {err:.3e} (<= {KERNEL_ATOL}), "
-        f"nonzero samples {frac_valid:.3f}")
-    del out_k, out_p
 
-    edge_err = 0.0
-    for i, (p, c, s) in enumerate(edge_cases("cuda")):
+    def run(p, c, s, want_path, label):
+        """The kernel against its plain version; the path taken, checked."""
+        before = warp_pool.paths[want_path]
         ok = warp_pool(p, c, s)
         pl = bilinear_sample_pool_plain(p, c, s)
         torch.cuda.synchronize()
+        check(warp_pool.paths[want_path] == before + 1,
+              f"{label}: expected path {want_path}, counts {dict(warp_pool.paths)}")
+        check(bool(torch.isfinite(ok).all()), f"{label}: non-finite output")
         e = float((ok - pl).abs().max())
-        check(bool(torch.isfinite(ok).all()), f"edge case {i}: non-finite output")
+        check(e <= KERNEL_ATOL, f"{label}: kernel vs plain {e}")
+        log(f"[kernel] {label}: pool {tuple(p.shape)} {str(p.dtype)[6:]}, crops {tuple(c.shape[:3])}, "
+            f"path {want_path}, max_abs_err {e:.3e}, bit for bit {bool(torch.equal(ok, pl))}")
+        return e, ok
+
+    pool, coords, src = pool_warp_operands(TrackerConfig(), rigs, seqs, hands)
+    err, out_k = run(pool, coords, src, "vector", "bench shape")
+    log(f"[kernel] bench shape nonzero samples {float((out_k != 0).float().mean()):.3f}")
+
+    g = torch.Generator().manual_seed(23)
+    edge_err = 0.0
+    for i, (p, c, s) in enumerate(edge_cases("cuda")):
+        # 7 x 11 and 97 x 95 crops: the scalar path
+        e, ok = run(p, c, s, "scalar", f"edge case {i}")
         if i < 2:
             invalid = ok[0, 0, [0, 1, 2, 3, 4, 8, 9, 10]]
             check(bool((invalid == 0).all()), f"edge case {i}: invalid samples not 0")
-        check(e <= KERNEL_ATOL, f"edge case {i}: kernel vs plain {e}")
         edge_err = max(edge_err, e)
-    log(f"[kernel] edge cases max_abs_err {edge_err:.3e}")
+    # a pool whose row pitch is no multiple of 16 bytes: vector I/O all the same
+    odd = (torch.rand((3, 200, 650), generator=g) * 255).to(torch.uint8).cuda()
+    odd_coords = (torch.rand((4, 96, 96, 2), generator=g) * torch.tensor([670.0, 220.0]) - 10.0).cuda()
+    odd_src = torch.tensor([2, 0, 1, 2], dtype=torch.int32, device="cuda")
+    edge_err = max(edge_err, run(odd, odd_coords, odd_src, "vector", "650-wide pool")[0])
+    # an f32 pool, crops of 64 x 32
+    f32_pool = (torch.rand((2, 100, 164), generator=g) * 255).cuda()
+    f32_coords = (torch.rand((3, 64, 32, 2), generator=g) * torch.tensor([170.0, 104.0]) - 3.0).cuda()
+    f32_src = torch.tensor([1, 0, 1], dtype=torch.int32, device="cuda")
+    edge_err = max(edge_err, run(f32_pool, f32_coords, f32_src, "vector", "164-wide f32 pool")[0])
+    # a coordinate view 8 bytes past a 16-byte boundary: the scalar path; 4 bytes past: refused
+    shifted = misaligned_view(odd_coords, 2)
+    check(shifted.data_ptr() % 16 == 8 and shifted.is_contiguous(), "misaligned view")
+    edge_err = max(edge_err, run(odd, shifted, odd_src, "scalar", "coords 8 bytes off")[0])
+    refused = False
+    try:
+        warp_pool(odd, misaligned_view(odd_coords, 1), odd_src)
+    except ValueError:
+        refused = True
+    check(refused, "coords 4 bytes off a boundary were not refused")
+    log(f"[kernel] coords 4 bytes off an 8-byte boundary: refused; edge cases max_abs_err {edge_err:.3e}")
+    del odd, odd_coords, shifted, f32_pool, f32_coords
 
+    # `ms`: one call of the wrapper, the median of single calls (its checks
+    # wait for the card once), as every earlier run of this script timed it;
+    # `kernel_ms`: the kernel alone, its device time in the profiler
     ms = median_ms(lambda: warp_pool(pool, coords, src), reps=20)
+    kernel_ms = device_ms(lambda: wp_mod._launch(pool, coords, src))
+    check_ms = burst_ms(lambda: wp_mod._check(pool, coords, src), BURST)
     plain_ms = median_ms(lambda: bilinear_sample_pool_plain(pool, coords, src), reps=5, warmup=1)
+    stream_ms, cast_ms = stream_floor_ms(coords)
     bound_ms, bound_by, text = byte_bound(pool, coords, src)
-    log(f"[kernel] warp_pool {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({text}), roofline share {bound_ms / ms:.3f}")
+    log(f"[kernel] warp_pool {ms:.4f} ms a call of the wrapper (median of 20 single calls; its "
+        f"checks alone {check_ms:.4f} ms), kernel alone {kernel_ms:.4f} ms (device time, mean of 20 "
+        f"launches), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({text}), roofline share "
+        f"{bound_ms / ms:.3f} of a call, {bound_ms / kernel_ms:.3f} of the kernel alone [{card}]")
+    log(f"[kernel] stream_ms {stream_ms:.4f} (the streaming floor: coords.sum(-1), "
+        f"{coords.numel() * 4 / 1e6:.1f} MB in, {coords.numel() * 2 / 1e6:.1f} MB out, no taps; back to back); "
+        f"the same bytes as an elementwise cast {cast_ms:.4f} ms [{card}]")
     log(f"[kernel] library_ms null: {NO_LIBRARY}; it would also need a per-warp image")
-    kern = dict(max_abs_err=max(err, edge_err), ms=ms, plain_ms=plain_ms,
+    kern = dict(max_abs_err=max(err, edge_err), ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
     return kern, (pool, coords, src)
 
@@ -239,40 +355,66 @@ def phase_kernel(wp_mod, rigs, seqs, hands):
 
 
 def block_stats(wi_mod, images, coords):
-    """How the windowed kernel's blocks of 256 consecutive pixels fall:
-    (blocks, blocks with no valid sample, blocks whose box fits the window),
-    reckoned from the coordinates the way the kernel does."""
+    """How the windowed kernel's blocks fall: (blocks, blocks with no valid
+    sample, blocks whose box fits the window), reckoned from the coordinates
+    the way the kernel does: its tile for this field, the box of each tile's
+    valid floor cells, the cp.async window with its 16-byte column start."""
     import torch
     from umetrack_torch.ops.resample import _sample_prep
 
     h, w = images.shape[-2:]
     n = images.shape[0] if images.dim() == 3 else 1
-    valid, x0, y0, _, _ = _sample_prep(h, w, coords.reshape(n, -1, 2))
-    pad = -valid.shape[1] % 256
+    ch, cw = wi_mod._crop_shape(images, coords)
+    plan = windowed_plan(wi_mod, images, coords)
+    tile = plan.tiling
+    valid, x0, y0, _, _ = _sample_prep(h, w, coords.reshape(n, ch, cw, 2))
+    pad = (0, -cw % tile.tile_w, 0, -ch % tile.tile_h)
     big = torch.iinfo(torch.int64).max
 
-    def blocks(a, fill):
-        return torch.cat([a, a.new_full((n, pad), fill)], dim=1).reshape(n, -1, 256)
+    def blocks(a, fill):  # [n, ch, cw] -> [n, tiles, pixels of a tile]
+        a = torch.nn.functional.pad(a, pad, value=fill)
+        a = a.reshape(n, a.shape[1] // tile.tile_h, tile.tile_h, a.shape[2] // tile.tile_w, tile.tile_w)
+        return a.permute(0, 1, 3, 2, 4).reshape(n, -1, tile.tile_h * tile.tile_w)
 
     v = blocks(valid, False)
     lo = lambda a: torch.where(v, blocks(a, 0), big).amin(dim=-1)
     hi = lambda a: torch.where(v, blocks(a, 0), -big).amax(dim=-1)
     any_valid = v.any(dim=-1)
-    fits = any_valid & (hi(x0) - lo(x0) + 2 <= wi_mod.WIN_COLS) & (hi(y0) - lo(y0) + 2 <= wi_mod.WIN_ROWS)
+    chunk = 16 // images.element_size()
+    cols = (hi(x0) + 1 - lo(x0) // chunk * chunk) // chunk * chunk + chunk
+    fits = any_valid & (cols <= wi_mod.WIN_COLS) & (hi(y0) - lo(y0) + 2 <= wi_mod.WIN_ROWS)
+    fits &= plan.staged  # images that cannot be staged: every block reads in place
     return v.shape[0] * v.shape[1], int((~any_valid).sum()), int(fits.sum())
+
+
+def windowed_plan(wi_mod, images, coords):
+    """The launch the windowed wrapper's rules give these operands (the
+    output of a launch is a fresh allocation, aligned)."""
+    from umetrack_torch.ops import _tiles
+
+    return _tiles.plan(
+        images.shape[-1], images.element_size(), images.data_ptr(),
+        wi_mod._crop_shape(images, coords), coords.data_ptr(), 0, staged=True)
+
+
+def windowed_path(wi_mod, images, coords):
+    return windowed_plan(wi_mod, images, coords).path
 
 
 def compare_image_kernels(wi_mod, images, coords, label):
     """Both kernels against the plain version within KERNEL_ATOL, windowed
-    == full bit for bit, launch counters as the dispatch rule says.
-    Returns the max abs error."""
+    == full bit for bit, launch counters and the windowed kernel's path as
+    the dispatch rules say.  Returns the max abs error."""
     import torch
+    from umetrack_torch.ops import _tiles
     from umetrack_torch.ops.resample import bilinear_sample_plain
 
     full_fn, win_fn = wi_mod.warp_image_full, wi_mod.warp_image_windowed
     h, w = images.shape[-2:]
-    small = h < wi_mod.WIN_ROWS or w < wi_mod.WIN_COLS
-    before = (full_fn.launches, win_fn.launches)
+    small = _tiles.small_image(h, w)
+    check(small == (h < wi_mod.WIN_ROWS or w < wi_mod.WIN_COLS), f"{label}: small-image rule")
+    want = "full kernel" if small else windowed_path(wi_mod, images, coords)
+    before = (full_fn.launches, win_fn.launches, win_fn.paths[want])
     full = full_fn(images, coords)
     win = win_fn(images, coords)
     plain = bilinear_sample_plain(images, coords)
@@ -280,6 +422,8 @@ def compare_image_kernels(wi_mod, images, coords, label):
     got = (full_fn.launches - before[0], win_fn.launches - before[1])
     check(got == ((2, 0) if small else (1, 1)),
           f"{label}: launches (full, windowed) {got} for a {h} x {w} image")
+    check(small or win_fn.paths[want] == before[2] + 1,
+          f"{label}: expected path {want}, counts {dict(win_fn.paths)}")
     check(full.shape == coords.shape[:-1], f"{label}: output shape {tuple(full.shape)}")
     check(bool(torch.isfinite(full).all()), f"{label}: non-finite output")
     err = float((full - plain).abs().max())
@@ -287,30 +431,74 @@ def compare_image_kernels(wi_mod, images, coords, label):
     check(bool(torch.equal(win, full)), f"{label}: windowed != full bit for bit")
     n_blocks, n_empty, n_fit = block_stats(wi_mod, images, coords)
     log(f"[image-kernels] {label}: images {tuple(images.shape)} {str(images.dtype)[6:]}, "
-        f"coords {tuple(coords.shape)}, max_abs_err {err:.3e}, windowed == full, "
+        f"coords {tuple(coords.shape)}, max_abs_err {err:.3e}, windowed == full, windowed path {want}, "
         f"blocks {n_blocks} (empty {n_empty}, fit {n_fit}, direct {n_blocks - n_empty - n_fit}), "
         f"nonzero {float((plain != 0).float().mean()):.3f}, launches full+{got[0]} windowed+{got[1]}")
     return err, (n_blocks, n_empty, n_fit)
 
 
 def time_image_kernels(wi_mod, images, coords, label, card, plain_reps=5):
-    """Median CUDA-event times of both kernels and the plain version, and
-    the byte bound, at one shape."""
+    """Both kernels' times at one shape (`ms`: one call of the wrapper, the
+    median of single calls, as every earlier run of this script timed it;
+    `kernel_ms`: the kernel alone, its device time in the profiler), the
+    plain version's time and the byte bound."""
     import torch
+    from umetrack_torch.ops import _tiles
     from umetrack_torch.ops.resample import bilinear_sample_plain
 
     n = images.shape[0]
     bound_ms, bound_by, text = byte_bound(
         images, coords, torch.arange(n, dtype=torch.int32, device=images.device))
     plain_ms = median_ms(lambda: bilinear_sample_plain(images, coords), reps=plain_reps, warmup=1)
+    pixels = coords.numel() // 2 // n
+    full_alone = lambda: wi_mod._launch_full(images, coords, n, pixels)
+    small = _tiles.small_image(*images.shape[-2:])  # the windowed wrapper runs the full kernel
+    alone = {
+        "warp_image_full": full_alone,
+        "warp_image_windowed": full_alone if small else lambda: wi_mod._launch_windowed(images, coords, n),
+    }
     out = {}
-    for name in ("warp_image_full", "warp_image_windowed"):
+    for name, launch in alone.items():
         fn = getattr(wi_mod, name)
         ms = median_ms(lambda: fn(images, coords), reps=20)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[image-kernels] {label}: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({text}), roofline share {bound_ms / ms:.3f} [{card}]")
+        kernel_ms = device_ms(launch)
+        out[name] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[image-kernels] {label}: {name} {ms:.4f} ms a call of the wrapper (median of 20 single "
+            f"calls), kernel alone {kernel_ms:.4f} ms (device time, mean of 20 launches), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({text}), roofline share "
+            f"{bound_ms / ms:.3f} of a call, {bound_ms / kernel_ms:.3f} of the kernel alone [{card}]")
     return out
+
+
+def time_forms(wi_mod, images, coords, label, card, rounds=3):
+    """The tiled kernel's two forms on the same data, through the wrapper's
+    own rules: the images as given (staged, 32 x 32 tile) and a copy that
+    starts 8 bytes off a 16-byte boundary, which cannot be staged (every tap
+    in place, 16 x 32 tile); the full kernel beside them.  Equal bit for
+    bit; device time in interleaved rounds of 20 launches each."""
+    import torch
+
+    n = images.shape[0]
+    shifted = misaligned_view(images, 8 // images.element_size())
+    paths = windowed_path(wi_mod, images, coords), windowed_path(wi_mod, shifted, coords)
+    check(paths == ("vector+cp_async", "vector"), f"{label}: paths of the two forms {paths}")
+    reference = wi_mod._launch_windowed(images, coords, n)
+    check(bool(torch.equal(wi_mod._launch_windowed(shifted, coords, n), reference)),
+          f"{label}: unstaged form != staged form")
+    del reference
+    pixels = coords.numel() // 2 // n
+    runs = {
+        "staged (vector+cp_async, tile 32 x 32)": lambda: wi_mod._launch_windowed(images, coords, n),
+        "taps in place (vector, tile 16 x 32)": lambda: wi_mod._launch_windowed(shifted, coords, n),
+        "warp_image_full": lambda: wi_mod._launch_full(images, coords, n, pixels),
+    }
+    times = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, fn in runs.items():
+            times[name].append(device_ms(fn))
+    for name, ms in times.items():
+        log(f"[forms] {label}: {name}: min {min(ms):.4f} ms, rounds "
+            f"{' '.join(f'{m:.4f}' for m in ms)} [{card}]")
 
 
 def torchdata_batch(n_seqs, t, h, w, seed0=0):
@@ -354,15 +542,26 @@ def phase_image_kernels(wi_mod, wp_mod, pool_operands, card):
     run(images_f, coords, "torch_data f32")
     times = time_image_kernels(wi_mod, images, coords, "torch_data uint8", card)
     time_image_kernels(wi_mod, images_f, coords, "torch_data f32", card)
+
+    time_forms(wi_mod, images, coords, "torch_data uint8", card)
     del images_f
 
     # (c) 120 x 160 frames: smaller than the window, the full kernel both
-    # ways; the shape at which the main path runs the full kernel
+    # ways; the shape at which the main path runs the full kernel.  The
+    # tiled kernel forced onto them, beside the full kernel the rule picks.
     small, small_coords = torchdata_warp_operands(torchdata_batch(TD_BATCH, TD_T, 120, 160, seed0=40))
     run(small, small_coords, "120 x 160 uint8")
     run(small.to(torch.float32), small_coords, "120 x 160 f32")
     times["warp_image_full"] = time_image_kernels(
         wi_mod, small, small_coords, "120 x 160 uint8", card)["warp_image_full"]
+    forced = wi_mod._launch_windowed(small, small_coords, small.shape[0])
+    check(bool(torch.equal(forced, wi_mod.warp_image_full(small, small_coords))),
+          "120 x 160: the tiled kernel != the full kernel")
+    forced_ms = device_ms(lambda: wi_mod._launch_windowed(small, small_coords, small.shape[0]))
+    log(f"[image-kernels] 120 x 160 uint8: the tiled kernel ({windowed_path(wi_mod, small, small_coords)}) forced past the "
+        f"small-image rule {forced_ms:.4f} ms, the full kernel "
+        f"{times['warp_image_full']['kernel_ms']:.4f} ms [{card}]")
+    del forced, small, small_coords
 
     # (d) one image, a flat list that fills no block
     flat = (torch.rand((1001, 2), generator=g) * torch.tensor([700.0, 540.0]) - 30.0).cuda()
@@ -376,6 +575,31 @@ def phase_image_kernels(wi_mod, wp_mod, pool_operands, card):
             out = wi_mod.warp_image_windowed(per_slot, c)
             check(bool((out[0, 0, [0, 1, 2, 3, 4, 8, 9, 10]] == 0).all()),
                   f"edge case {i}: invalid samples not 0")
+
+    # (g) images whose row pitch is no multiple of 16 bytes (vector I/O, taps
+    # in place), f32 images that can be staged, and coordinate views 8 bytes
+    # past a 16-byte boundary (the scalar path) or 4 bytes past (refused)
+    odd = (torch.rand((4, 200, 650), generator=g) * 255).to(torch.uint8).cuda()
+    odd_coords = (torch.rand((4, 96, 96, 2), generator=g) * torch.tensor([670.0, 220.0]) - 10.0).cuda()
+    check(windowed_path(wi_mod, odd, odd_coords) == "vector", "650-wide images: path rule")
+    run(odd, odd_coords, "650-wide uint8")
+    wide = (torch.rand((3, 150, 164), generator=g) * 255).cuda()
+    wide_coords = (torch.rand((3, 64, 32, 2), generator=g) * torch.tensor([60.0, 50.0])
+                   + torch.tensor([40.0, 30.0])).cuda()
+    check(windowed_path(wi_mod, wide, wide_coords) == "vector+cp_async", "164-wide f32: path rule")
+    run(wide, wide_coords, "164-wide f32")
+    shifted = misaligned_view(coords[:4], 2)
+    check(windowed_path(wi_mod, images[:4], shifted).startswith("scalar"), "shifted coords: path rule")
+    run(images[:4], shifted, "coords 8 bytes off")
+    for fn in (wi_mod.warp_image_full, wi_mod.warp_image_windowed):
+        refused = False
+        try:
+            fn(images[:4], misaligned_view(coords[:4], 1))
+        except ValueError:
+            refused = True
+        check(refused, f"{fn.__name__}: coords 4 bytes off a boundary were not refused")
+    log("[image-kernels] coords 4 bytes off an 8-byte boundary: refused by both wrappers")
+    del odd, odd_coords, wide, wide_coords, shifted
 
     # (f) blocks that cannot fit, blocks with no valid sample, and a mix
     sub = images[:8]
@@ -404,11 +628,15 @@ def phase_image_kernels(wi_mod, wp_mod, pool_operands, card):
     pool, pcoords, src = pool_operands
     per_slot = pool.index_select(0, src.to(torch.int64))
     run(per_slot, pcoords, "tracker bench per image")
-    diff = float((wi_mod.warp_image_windowed(per_slot, pcoords)
-                  - wp_mod.warp_pool(pool, pcoords, src)).abs().max())
-    check(diff <= KERNEL_ATOL, f"windowed kernel vs pool kernel: {diff}")
-    log(f"[image-kernels] tracker bench per image: windowed vs pool kernel max diff {diff:.3e}")
+    win_out = wi_mod.warp_image_windowed(per_slot, pcoords)
+    check(bool(torch.equal(win_out, wp_mod.warp_pool(pool, pcoords, src))),
+          "pool kernel != windowed kernel per slot bit for bit")
+    check(bool(torch.equal(win_out, wi_mod.warp_image_full(per_slot, pcoords))),
+          "pool kernel != full kernel per slot bit for bit")
+    log("[image-kernels] tracker bench per image: pool kernel == windowed == full per slot, bit for bit")
     time_image_kernels(wi_mod, per_slot, pcoords, "tracker bench per image", card, plain_reps=3)
+    del win_out
+    time_forms(wi_mod, per_slot, pcoords, "tracker bench per image", card)
     log(f"[image-kernels] library_ms null: {NO_LIBRARY}")
     for v in times.values():
         v["max_abs_err"] = max(errs)
@@ -689,7 +917,7 @@ def kernel_entry(name, source, replaces, n_launches, numbers):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": n_launches, "max_abs_err": numbers["max_abs_err"],
-        "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
+        "ms": numbers["ms"], "kernel_ms": numbers["kernel_ms"], "plain_ms": numbers["plain_ms"],
         "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
         "library_ms": None,
     }
@@ -715,7 +943,7 @@ def main():
     log(f"[inputs] {S_BENCH} sequences x {T_BENCH} frames, images {tuple(seqs.images.shape)} "
         f"{seqs.images.dtype}, made in {time.perf_counter() - t0:.1f} s")
 
-    pool_kern, pool_operands = phase_kernel(wp_mod, rigs, seqs, hands)
+    pool_kern, pool_operands = phase_kernel(wp_mod, rigs, seqs, hands, card)
     image_kern = phase_image_kernels(wi_mod, wp_mod, pool_operands, card)
     del pool_operands
     torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA sources (``csrc/<name>.cu``).
 
 Each source has a plain C interface, is compiled by ``nvcc`` for ``sm_90a``
-at first use into ``umetrack_torch/_build/`` (keyed on a hash of the source
-and the flags, so an edited source never meets a stale library) and is
-loaded with ``ctypes``.  Nothing here runs at import: a machine without
+at first use into ``umetrack_torch/_build/`` and is loaded with ``ctypes``.
+A library is keyed on a hash of every file under ``csrc/`` (the sources
+share headers there) and of the flags, so neither an edited source nor an
+edited header meets a stale library.  Nothing here runs at import: a machine without
 ``nvcc`` imports every module and fails only when a kernel is asked for.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,14 +43,46 @@ def _nvcc() -> str:
     return found
 
 
+def _sources_key() -> str:
+    """Hash of every file under ``csrc/`` (names and contents) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for file_name in sorted(os.listdir(CSRC_DIR)):
+        path = os.path.join(CSRC_DIR, file_name)
+        if os.path.isfile(path):
+            digest.update(file_name.encode())
+            with open(path, "rb") as fp:
+                digest.update(fp.read())
+    return digest.hexdigest()[:16]
+
+
+def _ptxas_summary(report: str) -> str:
+    """One line per kernel of ``-Xptxas -v``'s report: the entry's mangled
+    name (template arguments ``h``/``f`` for uint8/float32, ``Lb``/``Li``
+    for flags), registers, spilled bytes, static shared memory."""
+    entry = re.compile(r"Compiling entry function '(\w+)'")
+    spills = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+    used = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+    lines, name, spilled = [], None, (0, 0)
+    for line in report.splitlines():
+        if entry.search(line):
+            name = entry.search(line).group(1)
+        elif spills.search(line):
+            spilled = tuple(int(g) for g in spills.search(line).groups())
+        elif name and used.search(line):
+            regs, smem = used.search(line).groups()
+            lines.append(f"[ptxas] {name[:72]}: {regs} registers, spill stores/loads "
+                         f"{spilled[0]}/{spilled[1]} B, static smem {smem or 0} B")
+            name = None
+    return "\n".join(lines)
+
+
 def build(name: str, verbose: bool = False) -> str:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    """Compile ``csrc/<name>.cu`` unless a library of the same ``csrc/`` and
     flags exists; returns its path.  ``verbose`` adds ``-Xptxas -v`` to a
     build and prints the compiler's report (registers, spills, shared
-    memory)."""
+    memory of every kernel instantiation)."""
     source = source_path(name)
-    with open(source, "rb") as fp:
-        key = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = _sources_key()
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
     out = os.path.join(BUILD_DIR, f"{name}_{key}.so")
     if os.path.exists(out):
@@ -58,13 +92,13 @@ def build(name: str, verbose: bool = False) -> str:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *flags, "-o", tmp, source],
+            [_nvcc(), *flags, "-I", CSRC_DIR, "-o", tmp, source],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
         if verbose:
-            print(proc.stderr.strip(), flush=True)
+            print(_ptxas_summary(proc.stderr), flush=True)
         os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     finally:
         if os.path.exists(tmp):

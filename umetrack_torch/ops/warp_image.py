@@ -8,10 +8,11 @@ that sample ONE image at a list of coordinates, and carry
 - :func:`warp_image_full` <- ``pallas_bilinear_sample``: one thread per
   sample, taps read in place, cost independent of where samples land;
 - :func:`warp_image_windowed` <- ``pallas_bilinear_sample_windowed``: each
-  block of 256 consecutive pixels stages the source box of its valid
-  samples in a ``WIN_ROWS x WIN_COLS`` shared-memory window when the box
-  fits, and reads its taps from global memory when it does not; the result
-  is bit-identical either way.  An image smaller than the window goes to
+  block takes a 2-D tile of one coordinate field, four x-adjacent pixels per
+  thread, and copies the source box of its valid samples asynchronously
+  into a ``WIN_ROWS x WIN_COLS`` shared-memory window when the box fits,
+  reading its taps from global memory when it does not; the result is
+  bit-identical either way.  An image smaller than the window goes to
   :func:`warp_image_full`, as the TPU wrapper sent it to the full-height
   kernel.
 
@@ -22,53 +23,55 @@ float32 images are read in place; a float image is sampled in f32 exactly
 (the TPU float path rounded it to bf16), so for any content the kernels
 agree with the gather samplers (``_bilinear_gather1d``).
 
-The kernels are ``csrc/warp_image.cu``, built at first use and loaded with
+The kernels are ``csrc/warp_image.cu`` (the windowed one is the tiled
+kernel of ``csrc/warp_common.cuh``), built at first use and loaded with
 ``ctypes`` by ``ops/_build.py``.  CUDA tensors launch a kernel or raise; CPU
 tensors take the plain version
 (:func:`~umetrack_torch.ops.resample.bilinear_sample_plain`).  Each wrapper
-counts its launches in ``.launches``.
+counts its launches in ``.launches``; the windowed one also counts them by
+the form of the kernel that ran in ``.paths`` (``ops/_tiles.py`` holds the
+rules).  The counts are incremented where a kernel is launched
+(:func:`_launch_full`, :func:`_launch_windowed`) and nowhere else.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .resample import bilinear_sample_plain
 
 NAME = "warp_image"
 # The windowed kernel's shared-memory window in source pixels; the same two
-# constants as kWinRows / kWinCols of csrc/warp_image.cu (checked at load).
-WIN_ROWS = 32
-WIN_COLS = 384
-_THREADS = 256
+# constants as kWinRows / kWinCols of csrc/warp_common.cuh (checked at load).
+WIN_ROWS = _tiles.WIN_ROWS
+WIN_COLS = _tiles.WIN_COLS
+_THREADS = 256  # the full kernel's block
 _MAX_BLOCKS = 2**31 - 1
-_LAUNCH_ARGS = (
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
-)
 _SIGNATURES = {
-    "warp_image_full_launch": _LAUNCH_ARGS,
-    "warp_image_windowed_launch": _LAUNCH_ARGS,
-    "warp_image_window_rows": (),
-    "warp_image_window_cols": (),
+    "warp_image_full_launch": (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ),
+    "warp_image_windowed_launch": (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ),
+    "warp_image_constant": (ctypes.c_int,),
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The loaded library, its window checked against the wrapper's once."""
+    """The loaded library, its constants checked against ``_tiles`` once."""
     lib = _build.library(NAME, _SIGNATURES)
-    built = (lib.warp_image_window_rows(), lib.warp_image_window_cols())
-    if built != (WIN_ROWS, WIN_COLS):
-        raise RuntimeError(
-            f"csrc/warp_image.cu was built with a {built} window, the wrapper "
-            f"states {(WIN_ROWS, WIN_COLS)}"
-        )
+    _tiles.check_constants(lib.warp_image_constant, "csrc/warp_image.cu")
     return lib
 
 
@@ -98,7 +101,19 @@ def _check(image: torch.Tensor, coords: torch.Tensor) -> Tuple[int, int]:
     return n, coords.numel() // 2 // max(n, 1)
 
 
-def _launch(fn_name: str, image: torch.Tensor, coords: torch.Tensor, n: int, pixels: int):
+def _crop_shape(image: torch.Tensor, coords: torch.Tensor) -> Tuple[int, int]:
+    """(h, w) of the coordinate field of one image, as the tiled kernel cuts
+    it: the last list dimension is a row, all before it are stacked rows; a
+    flat list is one row."""
+    dims = coords.shape[1:-1] if image.dim() == 3 else coords.shape[:-1]
+    if len(dims) == 0:
+        return 1, 1
+    return dims[:-1].numel(), dims[-1]
+
+
+def _launch_full(image: torch.Tensor, coords: torch.Tensor, n: int, pixels: int) -> torch.Tensor:
+    """One launch of the full kernel on checked CUDA tensors, counted in
+    ``warp_image_full.launches``."""
     if image.device.type != "cuda":
         raise ValueError(f"unsupported device {image.device}")
     if n * -(-pixels // _THREADS) > _MAX_BLOCKS:
@@ -110,12 +125,45 @@ def _launch(fn_name: str, image: torch.Tensor, coords: torch.Tensor, n: int, pix
     lib = _library()
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = getattr(lib, fn_name)(
+        err = lib.warp_image_full_launch(
             image.data_ptr(), int(image.dtype == torch.float32),
             coords.data_ptr(), out.data_ptr(), n, pixels, h, w, stream,
         )
     if err != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+        raise RuntimeError(f"warp_image_full_launch failed: CUDA error {err}")
+    warp_image_full.launches += 1
+    return out
+
+
+def _launch_windowed(image: torch.Tensor, coords: torch.Tensor, n: int) -> torch.Tensor:
+    """One launch of the tiled kernel on checked CUDA tensors, counted in
+    ``warp_image_windowed.launches`` and ``.paths``."""
+    if image.device.type != "cuda":
+        raise ValueError(f"unsupported device {image.device}")
+    h, w = image.shape[-2:]
+    ch, cw = _crop_shape(image, coords)
+    out = torch.empty(coords.shape[:-1], dtype=torch.float32, device=image.device)
+    plan = _tiles.plan(
+        w, image.element_size(), image.data_ptr(), (ch, cw),
+        coords.data_ptr(), out.data_ptr(), staged=True,
+    )
+    tiles_y, tiles_x = _tiles.tile_counts(ch, cw, plan.tiling)
+    if n * tiles_y * tiles_x > _MAX_BLOCKS:
+        raise ValueError(f"{n} fields of {ch} x {cw} pixels exceed the kernel's grid")
+    lib = _library()
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = lib.warp_image_windowed_launch(
+            image.data_ptr(), int(image.dtype == torch.float32),
+            coords.data_ptr(), out.data_ptr(), n, ch, cw, h, w,
+            int(plan.vector), int(plan.staged),
+            plan.tiling.threads, plan.tiling.log2_tx, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"warp_image_windowed_launch failed ({plan.path}): CUDA error {err}")
+    warp_image_windowed.launches += 1
+    warp_image_windowed.paths[plan.path] += 1
     return out
 
 
@@ -129,9 +177,7 @@ def warp_image_full(
     n, pixels = _check(image, coords)
     if image.device.type == "cpu":
         return bilinear_sample_plain(image, coords)
-    out = _launch("warp_image_full_launch", image, coords, n, pixels)
-    warp_image_full.launches += 1
-    return out
+    return _launch_full(image, coords, n, pixels)
 
 
 def warp_image_windowed(
@@ -139,18 +185,29 @@ def warp_image_windowed(
     coords: torch.Tensor,  # [..., 2] or [N, ..., 2] float32 (x, y)
 ) -> torch.Tensor:  # coords.shape[:-1] float32 on the image's value scale
     """The same function as :func:`warp_image_full`, bit for bit, with each
-    block's source box staged in shared memory when it fits the window.  An
-    image smaller than the window goes to :func:`warp_image_full`."""
-    n, pixels = _check(image, coords)
+    block's source box staged in shared memory when it fits the window.
+
+    An image smaller than the ``WIN_ROWS x WIN_COLS`` window in either
+    direction goes to :func:`warp_image_full`.  Otherwise the tiled kernel
+    runs: with 16-byte loads and stores (path ``"vector"``) when the last
+    list dimension is a multiple of 4 and ``coords`` is 16-byte aligned,
+    ``"scalar"`` otherwise (``coords`` that is not 8-byte aligned raises);
+    staged (``"+cp_async"``) when the images start on a 16-byte boundary
+    and their row pitch is a multiple of 16 bytes, every tap in place when
+    not.  ``warp_image_windowed.paths`` counts the launches of each.
+
+    On an H100 the staged window does not pay: at the torch_data shape this
+    kernel is a few percent slower than :func:`warp_image_full` and than its
+    own unstaged form (``PERF.md``).  It is kept staged because the window
+    is what tells it from the full kernel, as it tells the TPU pair apart."""
+    n, _ = _check(image, coords)
     if image.device.type == "cpu":
         return bilinear_sample_plain(image, coords)
-    h, w = image.shape[-2:]
-    if h < WIN_ROWS or w < WIN_COLS:
+    if _tiles.small_image(*image.shape[-2:]):
         return warp_image_full(image, coords)
-    out = _launch("warp_image_windowed_launch", image, coords, n, pixels)
-    warp_image_windowed.launches += 1
-    return out
+    return _launch_windowed(image, coords, n)
 
 
 warp_image_full.launches = 0
 warp_image_windowed.launches = 0
+warp_image_windowed.paths = collections.Counter()

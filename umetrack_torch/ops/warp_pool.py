@@ -3,36 +3,45 @@
 Replaces ``pallas_bilinear_sample_pool`` (``umetrack_tpu/ops/pallas_resample.py``),
 the one TPU kernel on the tracker's main path: every warp of every frame in
 one launch, each warp sampling its own image of the pool.  The kernel is
-``csrc/warp_pool.cu``, built at first use and loaded with ``ctypes`` by
-``ops/_build.py``.
+``csrc/warp_pool.cu`` (the tiled kernel of ``csrc/warp_common.cuh``), built
+at first use and loaded with ``ctypes`` by ``ops/_build.py``.
 
 :func:`warp_pool` launches the kernel for CUDA tensors and runs the plain
 version (:func:`~umetrack_torch.ops.resample.bilinear_sample_pool_plain`)
-for CPU tensors; ``warp_pool.launches`` counts kernel launches.
+for CPU tensors; ``warp_pool.launches`` counts kernel launches and
+``warp_pool.paths`` counts them by the form of the kernel that ran
+(``ops/_tiles.py`` holds the rules); both are incremented where the kernel
+is launched (:func:`_launch`) and nowhere else.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-
+import functools
 import torch
 
-from . import _build
+from . import _build, _tiles
 from .resample import bilinear_sample_pool_plain
 
 NAME = "warp_pool"
-_THREADS = 256
-_MAX_GRID_Y = 65535
+_MAX_BLOCKS = 2**31 - 1
 _SIGNATURES = {
     "warp_pool_launch": (
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ),
+    "warp_pool_constant": (ctypes.c_int,),
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
-    return _build.library(NAME, _SIGNATURES)
+    """The loaded library, its constants checked against ``_tiles`` once."""
+    lib = _build.library(NAME, _SIGNATURES)
+    _tiles.check_constants(lib.warp_pool_constant, "csrc/warp_pool.cu")
+    return lib
 
 
 def _check(images: torch.Tensor, coords: torch.Tensor, src_idx: torch.Tensor):
@@ -60,8 +69,42 @@ def _check(images: torch.Tensor, coords: torch.Tensor, src_idx: torch.Tensor):
     m, h, w = images.shape
     if h < 2 or w < 2:
         raise ValueError(f"images must be at least 2 x 2, got {h} x {w}")
-    if src_idx.numel() and bool(((src_idx < 0) | (src_idx >= m)).any()):
-        raise IndexError(f"src_idx outside [0, {m})")
+    if src_idx.numel():
+        lo, hi = torch.aminmax(src_idx)  # one kernel; the reads below wait for it
+        if int(lo) < 0 or int(hi) >= m:
+            raise IndexError(f"src_idx outside [0, {m})")
+
+
+def _launch(images: torch.Tensor, coords: torch.Tensor, src_idx: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors, counted in
+    ``warp_pool.launches`` and ``warp_pool.paths``.  The pool's taps are
+    read in place: the kernel has no staged form."""
+    if images.device.type != "cuda":
+        raise ValueError(f"unsupported device {images.device}")
+    wn, ch, cw = coords.shape[:3]
+    out = torch.empty((wn, ch, cw), dtype=torch.float32, device=images.device)
+    plan = _tiles.plan(
+        images.shape[-1], images.element_size(), images.data_ptr(), (ch, cw),
+        coords.data_ptr(), out.data_ptr(), staged=False,
+    )
+    tiles_y, tiles_x = _tiles.tile_counts(ch, cw, plan.tiling)
+    if wn * tiles_y * tiles_x > _MAX_BLOCKS:
+        raise ValueError(f"{wn} warps of {ch} x {cw} pixels exceed the kernel's grid")
+    h, w = images.shape[-2:]
+    lib = _library()
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        err = lib.warp_pool_launch(
+            images.data_ptr(), int(images.dtype == torch.float32),
+            coords.data_ptr(), src_idx.data_ptr(), out.data_ptr(),
+            wn, ch, cw, h, w, int(plan.vector),
+            plan.tiling.threads, plan.tiling.log2_tx, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"warp_pool kernel launch failed ({plan.path}): CUDA error {err}")
+    warp_pool.launches += 1
+    warp_pool.paths[plan.path] += 1
+    return out
 
 
 def warp_pool(
@@ -71,32 +114,17 @@ def warp_pool(
 ) -> torch.Tensor:  # [Wn, h, w] float32 on the pool's value scale
     """Bilinear sample of ``images[src_idx[k]]`` at ``coords[k]`` for every
     warp, 0 outside ``[0, W-2] x [0, H-2]``.  CUDA tensors launch the kernel;
-    CPU tensors take the plain version."""
+    CPU tensors take the plain version.
+
+    The kernel moves four pixels per thread as 16-byte words (path
+    ``"vector"``) when ``w % 4 == 0`` and ``coords`` is 16-byte aligned, and
+    takes the ``"scalar"`` path otherwise; ``coords`` that is not 8-byte
+    aligned raises.  ``warp_pool.paths`` counts the launches of each."""
     _check(images, coords, src_idx)
     if images.device.type == "cpu":
         return bilinear_sample_pool_plain(images, coords, src_idx)
-    if images.device.type != "cuda":
-        raise ValueError(f"unsupported device {images.device}")
-    _, h, w = images.shape
-    wn, ch, cw = coords.shape[:3]
-    pixels = ch * cw
-    if -(-pixels // _THREADS) > _MAX_GRID_Y:
-        raise ValueError(f"{pixels} pixels per warp exceed the kernel's grid")
-    if coords.data_ptr() % 8:
-        raise ValueError("coords must be 8-byte aligned")
-    out = torch.empty((wn, ch, cw), dtype=torch.float32, device=images.device)
-    lib = _library()
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.warp_pool_launch(
-            images.data_ptr(), int(images.dtype == torch.float32),
-            coords.data_ptr(), src_idx.data_ptr(), out.data_ptr(),
-            wn, pixels, h, w, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"warp_pool kernel launch failed: CUDA error {err}")
-    warp_pool.launches += 1
-    return out
+    return _launch(images, coords, src_idx)
 
 
 warp_pool.launches = 0
+warp_pool.paths = collections.Counter()
