@@ -18,6 +18,7 @@ from umetrack_torch.data import Split
 from umetrack_torch.data.transform import parse_raw_buffers
 from umetrack_torch.models import ModelConfig, UmeTrackNet, from_flax_variables
 from umetrack_torch.utils.synthetic import make_torchdata_sample, write_torchdata_corpus
+from torch_threads import few_threads  # noqa: F401  (autouse: two CPU threads)
 
 SMALL = dict(
     start_planes=8, backbone_blocks=(1, 1, 1, 1),
@@ -129,7 +130,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(models, tree, monkeypatch):
         app.main(["--data", tree])
     with pytest.raises(ValueError, match="CUDA"):
         app.run(tree, models[0], device="cpu", sampler="kernel_win")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # a checkpoint loads (tests/test_torch_checkpoints.py); a missing file, an
+    # orbax directory and an unknown format raise, and no card still raises
+    with pytest.raises(FileNotFoundError):
         load_model_cli("some.msgpack", device="cpu")
+    with pytest.raises(NotImplementedError, match="orbax"):
+        load_model_cli(tree, device="cpu")
+    with pytest.raises(ValueError, match="format"):
+        load_model_cli("weights.bin", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model_cli("some.msgpack")
     with pytest.raises(SystemExit):
         app.main(["--data", tree, "--sampler", "pallas_win"])

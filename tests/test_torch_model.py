@@ -23,6 +23,7 @@ from umetrack_torch.models import (
     from_flax_variables,
 )
 from umetrack_torch.models.procrustes import procrustes_align_quat, procrustes_align_svd
+from torch_threads import few_threads  # noqa: F401  (autouse: two CPU threads)
 
 SMALL = dict(
     start_planes=8, backbone_blocks=(1, 1, 1, 1),

@@ -22,6 +22,7 @@ from umetrack_torch.tracker import HandTracker, TrackerConfig, sequence_landmark
 from umetrack_torch.tracker import tracker as port_tracker
 from umetrack_torch.tracker.types import CameraRig, FrameObservation
 from umetrack_torch.utils.synthetic import our_sequence
+from torch_threads import few_threads  # noqa: F401  (autouse: two CPU threads)
 
 SMALL = dict(
     start_planes=8, backbone_blocks=(1, 1, 1, 1),

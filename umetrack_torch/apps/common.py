@@ -8,21 +8,26 @@ sharded by ``--rank`` / ``--world-size`` alone; the JAX package's
 from __future__ import annotations
 
 import argparse
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 from .._device import resolve_device
 from ..models import ModelConfig, UmeTrackNet, make_model
 from ..ops.resample import SAMPLERS
 
 
-def add_runtime_flags(parser: argparse.ArgumentParser) -> None:
+def add_runtime_flags(
+    parser: argparse.ArgumentParser, samplers: Sequence[str] = SAMPLERS
+) -> None:
+    """``samplers`` are the names ``--sampler`` takes: the single-image
+    samplers for the torch_data app (the default), the tracker's for the
+    eval apps (``tracker.types.SAMPLERS``)."""
     parser.add_argument(
         "--dtype", choices=["auto", "float32"], default="auto",
         help="model compute dtype; only float32 is ported, and 'auto' takes it",
     )
     parser.add_argument(
-        "--sampler", choices=SAMPLERS, default=None,
-        help="bilinear warp implementation; default kernel_win on the GPU "
+        "--sampler", choices=list(samplers), default=None,
+        help="bilinear warp implementation; default a CUDA kernel on the GPU "
         "and plain on the CPU (a kernel needs the GPU)",
     )
     parser.add_argument(
@@ -40,17 +45,30 @@ def setup_runtime(args) -> Tuple[int, int]:
     return args.rank, args.world_size
 
 
+def tracker_config_from_args(args, **overrides):
+    """TrackerConfig with the CLI's sampler selection applied."""
+    from ..tracker import TrackerConfig
+
+    if getattr(args, "sampler", None):
+        overrides.setdefault("sampler", args.sampler)
+    return TrackerConfig(**overrides)
+
+
 def load_model_cli(
     checkpoint: Optional[str], dtype: str = "auto", device=None, seed: int = 0
 ) -> UmeTrackNet:
-    """The model at the full width of ``ModelConfig()`` on ``device`` with
-    seeded random weights.  A checkpoint raises: the loader (flax msgpack ->
-    state dict) is ROADMAP Queue 1 item 7 and is not ported yet."""
-    if checkpoint:
-        raise NotImplementedError(
-            "--checkpoint: the checkpoint loader is not ported yet "
-            "(ROADMAP Queue 1 item 7); run without it for seeded random weights"
-        )
+    """The model at the full width of ``ModelConfig()`` on ``device``, in
+    eval mode, with the weights of ``checkpoint`` (a flax ``.msgpack`` file
+    or a ``.torch`` state dict of the original model) or, without one,
+    seeded random weights."""
     if dtype not in ("auto", "float32"):
         raise ValueError(f"dtype {dtype!r}: only float32 is ported")
-    return make_model(ModelConfig(), seed=seed, device=resolve_device(device))
+    device = resolve_device(device)
+    config = ModelConfig()
+    if not checkpoint:
+        return make_model(config, seed=seed, device=device)
+    from ..utils.checkpoints import load_checkpoint
+
+    model = UmeTrackNet(config)
+    model.load_state_dict(load_checkpoint(checkpoint, config))
+    return model.to(device).eval()

@@ -1,9 +1,13 @@
-"""A small msgpack codec: nil, bool, int, float32/64, str, bin, array, map.
+"""A small msgpack codec: nil, bool, int, float32/64, str, bin, array, map,
+and the extension type that flax writes for arrays.
 
 The torch_data label files are msgpack objects, and this package depends on
 no msgpack library: it always uses this codec.  It covers what the label
 schema (nested dicts and lists of numbers and strings) and a flax msgpack
-checkpoint's framing need; extension types and timestamps raise.
+checkpoint need.  A numpy array is extension type 1, whose payload is the
+packed tuple ``(shape, dtype name, C-order bytes)``; flax's other two
+extension types (2: complex, 3: numpy scalar), any other extension type and
+timestamps raise.
 
 :func:`packb` writes each value in its shortest form, floats as float64 and
 ``bytes`` as bin, so its output is byte-identical to the ``msgpack``
@@ -69,6 +73,8 @@ def _pack(obj: Any, out: bytearray) -> None:
             out += b"\xdd" + struct.pack(">I", n)
         for item in obj:
             _pack(item, out)
+    elif isinstance(obj, np.ndarray):
+        _pack_ndarray(obj, out)
     elif isinstance(obj, dict):
         n = len(obj)
         if n < 16:
@@ -82,6 +88,54 @@ def _pack(obj: Any, out: bytearray) -> None:
             _pack(value, out)
     else:
         raise TypeError(f"cannot pack {type(obj).__name__}")
+
+
+EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
+_EXT_NAMES = {EXT_COMPLEX: "a complex number", EXT_NPSCALAR: "a numpy scalar"}
+_FIXEXT = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+_EXT_LEN = {0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}
+_FIXEXT_LEN = {first: n for n, first in _FIXEXT.items()}
+
+
+def _pack_ndarray(a: np.ndarray, out: bytearray) -> None:
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise TypeError(f"cannot pack an array of dtype {a.dtype}")
+    payload = bytearray()
+    _pack((tuple(int(d) for d in a.shape), a.dtype.name, a.tobytes("C")), payload)
+    n = len(payload)
+    if n in _FIXEXT:
+        out.append(_FIXEXT[n])
+    elif n < 2**8:
+        out += b"\xc7" + struct.pack(">B", n)
+    elif n < 2**16:
+        out += b"\xc8" + struct.pack(">H", n)
+    elif n < 2**32:
+        out += b"\xc9" + struct.pack(">I", n)
+    else:
+        raise OverflowError(f"array of {a.nbytes} bytes does not fit one msgpack extension")
+    out.append(EXT_NDARRAY)
+    out += payload
+
+
+def _unpack_ext(code: int, payload: bytes) -> np.ndarray:
+    if code != EXT_NDARRAY:
+        what = _EXT_NAMES.get(code, "unknown")
+        raise ValueError(f"unsupported msgpack extension type {code} ({what})")
+    try:
+        fields, end = _unpack(payload, 0)
+    except (IndexError, struct.error):
+        raise ValueError("truncated msgpack data") from None
+    if not (isinstance(fields, list) and len(fields) == 3 and end == len(payload)
+            and isinstance(fields[0], list) and isinstance(fields[1], str)
+            and isinstance(fields[2], bytes)):
+        raise ValueError("malformed array extension: want (shape, dtype name, bytes)")
+    shape, dtype_name, raw = fields
+    try:
+        dtype = np.dtype(dtype_name)
+    except TypeError:
+        raise ValueError(f"array of dtype {dtype_name!r}: numpy has no such dtype") from None
+    # a copy: the array must not pin (or alias) the whole file's buffer
+    return np.frombuffer(raw, dtype=dtype).reshape(shape).copy()
 
 
 def _pack_int(v: int, out: bytearray) -> None:
@@ -177,6 +231,18 @@ def _unpack(buf: bytes, pos: int) -> Tuple[Any, int]:
         n = struct.unpack_from(fmt, buf, pos)[0]
         pos += struct.calcsize(fmt)
         return _unpack_array(buf, pos, n) if b in _ARRAY_LEN else _unpack_map(buf, pos, n)
+    if b in _EXT_LEN or b in _FIXEXT_LEN:
+        if b in _EXT_LEN:
+            n = struct.unpack_from(_EXT_LEN[b], buf, pos)[0]
+            pos += struct.calcsize(_EXT_LEN[b])
+        else:
+            n = _FIXEXT_LEN[b]
+        code = struct.unpack_from(">b", buf, pos)[0]
+        pos += 1
+        payload = buf[pos: pos + n]
+        if len(payload) != n:
+            raise ValueError("truncated msgpack data")
+        return _unpack_ext(code, payload), pos + n
     raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
 
 

@@ -15,3 +15,11 @@ def join(*parts: str) -> str:
 
 def basename(path: str) -> str:
     return os.path.basename(path)
+
+
+def dirname(path: str) -> str:
+    return os.path.dirname(path)
+
+
+def exists(path: str) -> bool:
+    return os.path.exists(path)

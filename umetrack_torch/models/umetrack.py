@@ -115,10 +115,9 @@ def _wrist_to_world(
 
 
 class UmeTrackNet(nn.Module):
-    """Feature extractor + temporal cell + skeleton encoder + two regressors.
-
-    Only float32 compute is ported; ``regressor_u`` is built so the weights
-    carry over whole, but its tracker paths are not ported yet."""
+    """Feature extractor + temporal cell + skeleton encoder + two regressors
+    (``regressor_k`` with a known skeleton, ``regressor_u`` predicting the
+    skeleton scale).  Only float32 compute is ported."""
 
     def __init__(self, config: Optional[ModelConfig] = None):
         super().__init__()
@@ -231,6 +230,18 @@ class UmeTrackNet(nn.Module):
             out, wrist_xfs=_wrist_to_world(cam0_extrinsics, hand_idx, out.wrist_xfs)
         )
 
+    def regress_scale(
+        self,
+        fused: torch.Tensor,  # [B, C_img, h, w] temporal-cell output
+        hand_idx: torch.Tensor,  # [B]
+        cam0_extrinsics: torch.Tensor,  # [B, 4, 4] world->cam0 (meters)
+    ) -> RegressorOutput:
+        """Scale-predicting regressor head on precomputed temporal features."""
+        out = self.regressor_u(fused)
+        return dataclasses.replace(
+            out, wrist_xfs=_wrist_to_world(cam0_extrinsics, hand_idx, out.wrist_xfs)
+        )
+
     def known_skeleton(
         self, frame: FrameInputs, skeleton: SkeletonInputs, state: TemporalState
     ) -> Tuple[RegressorOutput, TemporalState]:
@@ -240,6 +251,16 @@ class UmeTrackNet(nn.Module):
         out = self.regress_known(
             fused, self.encode_skeleton(skeleton), frame.hand_idx, frame.extrinsics[:, 0]
         )
+        return out, new_state
+
+    def predict_scale(
+        self, frame: FrameInputs, state: TemporalState
+    ) -> Tuple[RegressorOutput, TemporalState]:
+        """Pose and skeleton-scale regression without a skeleton, one frame;
+        callers supply two-view samples only."""
+        img_features = self.extract_features(frame)
+        fused, new_state = self._temporal_features(img_features, frame, state)
+        out = self.regress_scale(fused, frame.hand_idx, frame.extrinsics[:, 0])
         return out, new_state
 
     forward = known_skeleton

@@ -1,7 +1,11 @@
 from .crops import gen_crop_set, landmarks_from_pose, static_crop_points_local
 from .tracker import (
     HandTracker,
+    calibrate_sequence,
+    calibrate_sequences_batched,
+    predict_scales_sequence,
     sequence_landmarks,
+    track_frame,
     track_sequence,
     track_sequences_batched,
 )
@@ -20,7 +24,11 @@ __all__ = [
     "landmarks_from_pose",
     "static_crop_points_local",
     "HandTracker",
+    "calibrate_sequence",
+    "calibrate_sequences_batched",
+    "predict_scales_sequence",
     "sequence_landmarks",
+    "track_frame",
     "track_sequence",
     "track_sequences_batched",
     "CameraRig",

@@ -1,12 +1,14 @@
-"""The known-skeleton sequence tracker.
+"""The temporal hand tracker: sequences, single frames, scale calibration.
 
-Counterpart of ``umetrack_tpu/tracker/tracker.py``.  Per-frame work that
-does not depend on the recurrent state (crop cameras, the fisheye -> pinhole
-coordinate fields, the crop warps, the image features) runs over all frames
-at once; only the conv-RNN cell steps through time, in a Python loop; the
-regressor head then runs over all frames at once again.  Every warp of
-every frame goes through ONE call of the image-pool sampler
-(``ops/warp_pool.py``).
+Counterpart of ``umetrack_tpu/tracker/tracker.py``.  On a sequence, the
+per-frame work that does not depend on the recurrent state (crop cameras,
+the fisheye -> pinhole coordinate fields, the crop warps, the image
+features) runs over all frames at once; only the conv-RNN cell steps
+through time, in a Python loop; the regressor head (``regressor_k`` with a
+known skeleton, ``regressor_u`` predicting the skeleton scale) then runs
+over all frames at once again.  :func:`track_frame` is the streaming form:
+one frame, the state carried by the caller.  Every warp of every frame of a
+call goes through ONE call of the image-pool sampler (``ops/warp_pool.py``).
 
 Units: the tracker API is mm, the model consumes meters.  Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
@@ -128,10 +130,12 @@ def _frame_inputs_from_crops(
     crop_set: CropSet,  # leaves [..., B, V, ...]
     crop_images: torch.Tensor,  # [..., B, V, h, w]
     hand_idx: torch.Tensor,  # [B]
+    use_memory: Optional[torch.Tensor] = None,  # [..., B] bool
 ) -> FrameInputs:
     """Dense model inputs; invalid view slots inherit view-0 geometry so
-    every lane stays finite and orthonormal.  ``use_memory`` is all False:
-    the sequence scan computes the real gate from the validity run."""
+    every lane stays finite and orthonormal.  Without ``use_memory`` the
+    gate is all False: the sequence scan computes the real one from the
+    validity run."""
     extr_m = affine.rigid_inverse(crop_set.T_world_from_eye)
     extr_m[..., :3, 3] *= MM_TO_M
     vv = crop_set.view_valid[..., None, None]
@@ -143,7 +147,7 @@ def _frame_inputs_from_crops(
         extrinsics=extr_m,
         n_views=torch.clamp(crop_set.n_views, min=1),
         hand_idx=hand_idx.expand(crop_set.n_views.shape),
-        use_memory=torch.zeros_like(crop_set.hand_valid),
+        use_memory=torch.zeros_like(crop_set.hand_valid) if use_memory is None else use_memory,
     )
 
 
@@ -153,13 +157,14 @@ def _model_scan(
     crop_sets: CropSet,  # leaves [T, B, ...]
     crop_images: torch.Tensor,  # [T, B, V, h, w]
     init_state: TrackState,  # leaves [B, ...]
-    skeleton: SkeletonInputs,  # [Bs, 22, 3], Bs == B or 1
+    skeleton: Optional[SkeletonInputs],  # [Bs, 22, 3], Bs == B or 1; None: scale head
     hand_idx: torch.Tensor,  # [B]
 ) -> Tuple[FrameResult, TrackState]:
     """The recurrent model over time with the backbone hoisted out of the
     loop: image features for all T*B rows in one batch, then the conv-RNN
-    cell per frame, then the regressor head for all rows in one batch.
-    Rows are flattened B-major."""
+    cell per frame, then the regressor head for all rows in one batch (the
+    scale-predicting head when ``skeleton`` is None).  Rows are flattened
+    B-major."""
     t, b = crop_images.shape[:2]
     frames = _frame_inputs_from_crops(crop_sets, crop_images, hand_idx)
 
@@ -193,12 +198,18 @@ def _model_scan(
     fused_t = torch.stack(fused)
 
     # 3) regressor head for ALL frames in one batch
-    skel = model.encode_skeleton(skeleton)
-    skel = skel.expand(b, *skel.shape[1:])
-    skel_flat = skel[:, None].expand(b, t, *skel.shape[1:]).reshape(b * t, *skel.shape[1:])
-    out = model.regress_known(
-        flat(fused_t), skel_flat, flat(frames.hand_idx), flat(frames.extrinsics[:, :, 0])
-    ).map(unflat)
+    if skeleton is not None:
+        skel = model.encode_skeleton(skeleton)
+        skel = skel.expand(b, *skel.shape[1:])
+        skel_flat = skel[:, None].expand(b, t, *skel.shape[1:]).reshape(b * t, *skel.shape[1:])
+        out = model.regress_known(
+            flat(fused_t), skel_flat, flat(frames.hand_idx), flat(frames.extrinsics[:, :, 0])
+        )
+    else:
+        out = model.regress_scale(
+            flat(fused_t), flat(frames.hand_idx), flat(frames.extrinsics[:, :, 0])
+        )
+    out = out.map(unflat)
 
     wrist_mm = out.wrist_xfs.clone()
     wrist_mm[..., :3, 3] *= M_TO_MM
@@ -207,6 +218,7 @@ def _model_scan(
         wrist_xfs=wrist_mm,
         valid=hand_valid,
         n_views=crop_sets.n_views,
+        predicted_scales=out.skel_scales,
     )
     final_state = TrackState(
         temporal=TemporalState(mem_features=mem, prev_extrinsics=cur_e[-1]),
@@ -299,6 +311,75 @@ def _on_device(model: UmeTrackNet, device, *trees):
 
 
 @torch.inference_mode()
+def _track_step(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,  # fields [N]
+    obs: FrameObservation,  # one frame: images [N, H, W], ...
+    state: TrackState,  # leaves [2, ...]
+    hand_model_mm: HandModel,
+    min_num_crops: int,
+    known: bool,
+    sampler: str,
+    skel_hand_model_mm: Optional[HandModel] = None,
+) -> Tuple[FrameResult, TrackState]:
+    """One tracker step: crops -> one pool warp over the frame's 2*V slots
+    -> model forward with the memory gate from the carried state -> decode
+    -> new state."""
+    crop_set, crop_images = _prepare_frames(
+        config, rig, obs, hand_model_mm, min_num_crops, sampler
+    )  # leaves [2, ...], [2, V, h, w]
+    if config.enable_memory:
+        use_memory = state.valid_history & crop_set.hand_valid
+    else:
+        use_memory = torch.zeros_like(crop_set.hand_valid)
+    frame = _frame_inputs_from_crops(
+        crop_set, crop_images, torch.arange(2, device=crop_images.device), use_memory
+    )
+    if known:
+        # Crops always come from ``hand_model_mm`` (the GT skeleton of the
+        # eval protocol); the model's skeleton input may differ.
+        skel_src = hand_model_mm if skel_hand_model_mm is None else skel_hand_model_mm
+        out, new_temporal = model.known_skeleton(frame, _skeleton_inputs(skel_src), state.temporal)
+    else:
+        out, new_temporal = model.predict_scale(frame, state.temporal)
+
+    wrist_mm = out.wrist_xfs.clone()
+    wrist_mm[..., :3, 3] *= M_TO_MM
+    result = FrameResult(
+        joint_angles=out.joint_angles,
+        wrist_xfs=wrist_mm,
+        valid=crop_set.hand_valid,
+        n_views=crop_set.n_views,
+        predicted_scales=out.skel_scales,
+    )
+    return result, TrackState(temporal=new_temporal, valid_history=crop_set.hand_valid)
+
+
+def track_frame(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,  # fields [N]
+    obs: FrameObservation,  # one frame (no leading axis)
+    state: TrackState,  # leaves [2, ...]
+    hand_model_mm: HandModel,
+    min_num_crops: int = 1,
+    known: bool = True,
+    device=None,
+) -> Tuple[FrameResult, TrackState]:
+    """Single-frame streaming entry point: ``known=True`` tracks with the
+    skeleton of ``hand_model_mm``, ``known=False`` with the scale-predicting
+    head (``predicted_scales`` is set).  Results are ``[2, ...]`` in mm."""
+    device, (rig, obs, state, hand_model_mm) = _on_device(
+        model, device, rig, obs, state, hand_model_mm
+    )
+    return _track_step(
+        model, config, rig, obs, state, hand_model_mm, min_num_crops, known,
+        config.resolved_sampler(device),
+    )
+
+
+@torch.inference_mode()
 def track_sequence(
     model: UmeTrackNet,
     config: TrackerConfig,
@@ -383,6 +464,105 @@ def track_sequences_batched(
     return results, final_state
 
 
+def _first_n_valid_mean(
+    scales: torch.Tensor,  # [..., K] in the order the samples are appended
+    valid: torch.Tensor,  # [..., K] bool
+    n_calibration_samples: int,
+) -> torch.Tensor:  # [...]
+    """Mean of the first ``n_calibration_samples`` valid scales along the
+    last dim (0 = all valid ones); 0 where none is valid."""
+    if n_calibration_samples:
+        take = valid & (torch.cumsum(valid.to(torch.int32), dim=-1) <= n_calibration_samples)
+    else:
+        take = valid
+    w = take.to(scales.dtype)
+    return (scales * w).sum(dim=-1) / torch.clamp(w.sum(dim=-1), min=1.0)
+
+
+@torch.inference_mode()
+def calibrate_sequences_batched(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rigs: CameraRig,  # fields [S, N]
+    seqs: FrameObservation,  # leaves [S, T, ...]
+    init_state: TrackState,  # leaves [2S, ...]
+    hand_models_mm: HandModel,  # [S, ...]
+    n_calibration_samples: int = 30,
+    min_num_crops: int = 2,
+    device=None,
+) -> torch.Tensor:  # [S]
+    """Unknown-skeleton pass 1 for S sequences in lock-step: the scale head
+    runs on 2S merged hand rows, and each sequence averages its first
+    ``n_calibration_samples`` valid predictions (frame-major, hand 0 before
+    hand 1: the order in which the original evaluation appends them)."""
+    device, (rigs, seqs, init_state, hand_models_mm) = _on_device(
+        model, device, rigs, seqs, init_state, hand_models_mm
+    )
+    s = rigs.fx.shape[0]
+    crop_sets_t, crop_images_t = _prepare_sequences_merged(
+        config, rigs, seqs, hand_models_mm, min_num_crops, config.resolved_sampler(device)
+    )
+    results, _ = _model_scan(
+        model, config, crop_sets_t, crop_images_t, init_state, None,
+        torch.arange(2, device=device).repeat(s),
+    )
+
+    def per_sequence(a):  # [T, 2S] -> [S, T*2] frame-major, hand-minor
+        return a.reshape(-1, s, 2).transpose(0, 1).reshape(s, -1)
+
+    return _first_n_valid_mean(
+        per_sequence(results.predicted_scales), per_sequence(results.valid),
+        n_calibration_samples,
+    )
+
+
+@torch.inference_mode()
+def predict_scales_sequence(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,
+    seq: FrameObservation,  # leaves [T, ...]
+    init_state: TrackState,
+    hand_model_mm: HandModel,
+    min_num_crops: int = 2,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor, TrackState]:
+    """Per-frame skeleton-scale predictions over a sequence (or a chunk of
+    one): (scales [T, 2], valid [T, 2], final state).  The building block of
+    the chunked calibration pass, whose callers aggregate across chunks on
+    the host."""
+    device, (rig, seq, init_state, hand_model_mm) = _on_device(
+        model, device, rig, seq, init_state, hand_model_mm
+    )
+    crop_sets, crop_images = _prepare_frames(
+        config, rig, seq, hand_model_mm, min_num_crops, config.resolved_sampler(device)
+    )
+    results, state = _model_scan(
+        model, config, crop_sets, crop_images, init_state, None,
+        torch.arange(2, device=device),
+    )
+    return results.predicted_scales, results.valid, state
+
+
+def calibrate_sequence(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,
+    seq: FrameObservation,  # leaves [T, ...]
+    init_state: TrackState,
+    hand_model_mm: HandModel,
+    n_calibration_samples: int = 30,
+    device=None,
+) -> torch.Tensor:  # scalar
+    """Unknown-skeleton pass 1: predict per-frame skeleton scales on 2-view
+    frames and average the first ``n_calibration_samples`` valid ones
+    (0 = all), frame-major, hand 0 before hand 1."""
+    scales, valid, _ = predict_scales_sequence(
+        model, config, rig, seq, init_state, hand_model_mm, 2, device
+    )
+    return _first_n_valid_mean(scales.reshape(-1), valid.reshape(-1), n_calibration_samples)
+
+
 @torch.inference_mode()
 def sequence_landmarks(
     hand_model_mm: HandModel,
@@ -395,9 +575,8 @@ def sequence_landmarks(
 
 
 class HandTracker:
-    """Model + config bundle with the JAX package's ``HandTracker`` surface
-    for the known-skeleton sequence path.  The model moves to ``device``
-    (CUDA unless ``"cpu"`` is passed)."""
+    """Model + config bundle with the JAX package's ``HandTracker`` surface.
+    The model moves to ``device`` (CUDA unless ``"cpu"`` is passed)."""
 
     def __init__(self, model: UmeTrackNet, config: Optional[TrackerConfig] = None,
                  device=None):
@@ -407,6 +586,33 @@ class HandTracker:
 
     def init_state(self, batch: int = 2) -> TrackState:
         return TrackState.init(self.model.config, batch, device=self.device)
+
+    def track_frame(self, rig, obs, state, hand_model_mm, min_num_crops: int = 1):
+        return track_frame(
+            self.model, self.config, rig, obs, state, hand_model_mm, min_num_crops,
+            known=True, device=self.device,
+        )
+
+    def track_frame_and_calibrate_scale(self, rig, obs, state, hand_model_mm,
+                                        min_num_crops: int = 2):
+        return track_frame(
+            self.model, self.config, rig, obs, state, hand_model_mm, min_num_crops,
+            known=False, device=self.device,
+        )
+
+    def calibrate_sequence(self, rig, seq, hand_model_mm, n_calibration_samples: int = 30,
+                           init_state: Optional[TrackState] = None):
+        return calibrate_sequence(
+            self.model, self.config, rig, seq, init_state or self.init_state(),
+            hand_model_mm, n_calibration_samples, device=self.device,
+        )
+
+    def predict_scales(self, rig, seq, hand_model_mm, min_num_crops: int = 2,
+                       init_state: Optional[TrackState] = None):
+        return predict_scales_sequence(
+            self.model, self.config, rig, seq, init_state or self.init_state(),
+            hand_model_mm, min_num_crops, device=self.device,
+        )
 
     def track_sequence(self, rig, seq, hand_model_mm, min_num_crops: int = 1,
                        init_state: Optional[TrackState] = None,

@@ -133,3 +133,4 @@ class FrameResult(TensorTree):
     wrist_xfs: torch.Tensor  # [..., 4, 4] (translation mm)
     valid: torch.Tensor  # [...] bool
     n_views: torch.Tensor  # [...] int32
+    predicted_scales: Optional[torch.Tensor] = None  # [...] (scale head only)

@@ -1,0 +1,51 @@
+"""Wall-clock phase timers with throughput accounting.
+
+Counterpart of ``PhaseTimers`` in ``umetrack_tpu/utils/profiling.py``.
+PyTorch returns before the GPU has finished, so a phase that must include
+its device work names the device as its ``barrier``: the timer synchronises
+it before it reads the clock.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+import torch
+
+
+class PhaseTimers:
+    """Accumulating named wall-clock timers with item-rate reporting."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self.items: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, items: int = 0, barrier: Optional[torch.device] = None):
+        """Time the block; with a CUDA ``barrier`` device, wait for the work
+        queued on it before the clock is read (a CPU device needs no wait)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if barrier is not None and torch.device(barrier).type == "cuda":
+                torch.cuda.synchronize(barrier)
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+            self.items[name] += items
+
+    def report(self) -> str:
+        lines = []
+        for name in sorted(self.totals):
+            total = self.totals[name]
+            line = f"{name}: {total:.3f}s over {self.counts[name]} calls"
+            if self.items[name]:
+                line += f" ({self.items[name] / max(total, 1e-9):.1f} items/s)"
+            lines.append(line)
+        return "\n".join(lines)
+
+    def as_dict(self) -> Dict[str, float]:
+        return dict(self.totals)
