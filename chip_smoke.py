@@ -62,7 +62,21 @@ exits non-zero without a result line:
    ones, for the reason given at ``TRAINED`` below; on the same crops the
    checkpoint too is held to the strict bounds.  The pool kernel's counter
    is set to 0 just before each entry-point call and read just after it;
-9. a ``{"kernels": [...]}`` line, then the last line
+9. the training path at the full width of ``ModelConfig()`` (f32): one
+   ``train_step`` and one ``temporal_train_step`` (K=4) on the card against
+   the CPU at the CPU tests' small config and bounds (loss, metrics, every
+   gradient leaf, the BatchNorm running stats after the step, TF32 off);
+   the three kernels against their plain versions at the training shapes,
+   and one train-app step under the profiler; ``prepare_tracker_sequences`` (32 capsule-rendered sequences x 16
+   frames, one ``warp_pool`` launch a sequence), the device-resident corpus
+   and ``run_resident_training`` at 32 hand rows x K=8 for 40 steps (loss
+   falls, eval MPJPE finite, steps/s, peak memory, one step under the
+   profiler); ``apps/train.py::main`` on synthetic 120 x 160 batches of 32 x
+   8 frames (one ``warp_image_full`` launch a batch; the final ``.msgpack``
+   reloads to the same forward) and on a 480 x 640 training tree (one
+   ``warp_image_windowed`` launch a batch); ``run_distillation`` with the
+   checkpoint as a ``.torch`` teacher (finite gaps and metric set);
+10. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the repository around it; without either it exits
@@ -70,6 +84,7 @@ non-zero.
 """
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -120,6 +135,20 @@ STRICT = Bounds(ANGLE_TOL, WRIST_TOL_MM, SCALE_TOL, CHUNKED_TOL_MM)
 TRAINED = Bounds(7e-3, 0.9, SCALE_TOL, 0.9)  # a frame alone or a chunk against the whole
 TRAINED_CPU = Bounds(5e-3, 0.4, SCALE_TOL, 0.4)  # card against CPU
 KERNEL_ATOL = 2e-2  # on the 0-255 scale, the JAX tests' bound
+# the training slice: card against CPU at tests/test_torch_train.py's small
+# config and bounds (the reasons for the first layers' and the zero-gradient
+# biases' bounds are given there)
+TRAIN_SMALL = dict(start_planes=8, backbone_blocks=(1, 1, 1, 1), n_image_feature_channels=12,
+                   n_memory_channels=6)
+TRAIN_B, TRAIN_K = 3, 4
+LOSS_RTOL, STATS_TOL = 1e-5, 1e-5
+GRAD_REL_L2, FIRST_LAYERS_REL_L2, ZERO_GRAD_NOISE = 1e-3, 1e-2, 1e-5
+FIRST_LAYERS = ("backbone.stem_", "backbone.stage0_block0.")
+ZERO_GRAD_LEAVES = ("backbone.stem_conv.bias", "fusion.conv0.bias", "fusion.conv1.bias")
+RES_SEQS, RES_T, RES_STEPS = 32, 16, 40  # the resident trainer: 32 hand rows x K=8
+APP_STEPS = 4  # train app on synthetic batches of 32 x 8 frames
+TREE_SEQS, TREE_BATCH = 32, 16  # train app on a 480 x 640 tree, one epoch
+DISTILL_STEPS, DISTILL_EVAL_SEQS = 20, 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
@@ -282,28 +311,40 @@ def device_ms(fn, reps=20):
     whatever the host takes to make a launch (at the smaller shapes a call
     from Python takes as long as the kernel runs, so launches made back to
     back would time the host).  The profiler drops some launches at the
-    ends of its window, more of a kernel of microseconds: it must have seen
-    half of them at least, the mean is over those it saw, and a window
-    that lost more than two is printed.  ``device_ms.seen`` keeps the count."""
+    ends of its window, more of a kernel of microseconds, and late in a
+    long run after a profile of tens of thousands of launches (6 of 20
+    seen, every time): a window that saw fewer than half is profiled again,
+    twice; if it still did, the time is that of ``BURST`` launches back to
+    back between CUDA events (an upper bound: host gaps included), and the
+    log says so.  The mean is over the launches seen, and a window that
+    lost more than two is printed.  ``device_ms.seen`` keeps the count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and "warp_" in e.key:
-            dev = getattr(e, "self_device_time_total", None)
-            total_us += e.self_cuda_time_total if dev is None else dev
-            count += e.count
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "warp_" in e.key:
+                dev = getattr(e, "self_device_time_total", None)
+                total_us += e.self_cuda_time_total if dev is None else dev
+                count += e.count
+        if count >= reps // 2:
+            break
+        log(f"[device_ms] the profiler saw {count} of {reps} launches; profiling again")
     device_ms.seen = count
-    check(reps // 2 <= count <= reps and total_us > 0,
-          f"the profiler saw {count} kernel launches in {reps} calls")
+    if count < reps // 2:
+        ms = burst_ms(fn, BURST)
+        log(f"[device_ms] the profiler kept losing launches: {ms:.4f} ms from CUDA events over "
+            f"{BURST} launches back to back instead")
+        return ms
+    check(count <= reps and total_us > 0, f"the profiler saw {count} kernel launches in {reps} calls")
     if count < reps - 2:
         log(f"[device_ms] the profiler saw {count} of {reps} launches; the mean is over those")
     return total_us / count / 1e3
@@ -748,9 +789,9 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
 
 def phase_profile(fn, label, kernel_name, card, top=15):
     """One warmed-up call of ``fn`` under torch.profiler: device time by
-    kernel, the share of the kernels named ``kernel_name``, and the device's
-    busy share of the call's wall time (one stream, so kernels do not
-    overlap)."""
+    kernel, the share of the kernels named ``kernel_name`` (if given), and
+    the device's busy share of the call's wall time (one stream, so kernels
+    do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -761,9 +802,12 @@ def phase_profile(fn, label, kernel_name, card, top=15):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # device kernels only, not the ops launching them nor the ranges that
+    # ``record_function`` marks on the device (``Optimizer.step``)
+    annotations = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # device kernels only, not the ops launching them
+        if e.device_type != DeviceType.CUDA or e.key in annotations:
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
@@ -773,13 +817,15 @@ def phase_profile(fn, label, kernel_name, card, top=15):
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     check(total > 0, "the profiler saw no device time")
-    warp = sum(r[0] for r in rows if kernel_name in r[2])
-    check(warp > 0, f"{label}: no {kernel_name} in the profile")
+    n_launches = sum(r[1] for r in rows)
+    warp = sum(r[0] for r in rows if kernel_name and kernel_name in r[2])
+    check(kernel_name is None or warp > 0, f"{label}: no {kernel_name} in the profile")
+    share = f", {kernel_name} {warp / 1e3:.3f} ms ({warp / total:.4f} of device time)" if kernel_name else ""
     log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device {total / 1e3:.1f} ms, "
-        f"busy share {total / wall_us:.3f}, {sum(r[1] for r in rows)} kernel launches, "
-        f"{kernel_name} {warp / 1e3:.3f} ms ({warp / total:.4f} of device time) [{card}]")
+        f"busy share {total / wall_us:.3f}, {n_launches} kernel launches{share} [{card}]")
     for dev, count, key in rows[:top]:
         log(f"[profile] {dev / 1e3:9.3f} ms {dev / total:6.3f} x{count:<5d} {key[:100]}")
+    return dict(wall_ms=wall_us / 1e3, device_ms=total / 1e3, launches=n_launches)
 
 
 # ---- the torch_data slice ---------------------------------------------------
@@ -1027,42 +1073,48 @@ def eval_shape_checks(wp_mod, config, rig, seq, hand, card):
     """The pool kernel against its plain version at the three shapes the
     evaluation path gives it: one streamed frame, a chunk of the streaming
     eval, a whole padded sequence.  A row of numbers for each."""
-    import torch
-    from umetrack_torch.ops.resample import bilinear_sample_pool_plain
     from umetrack_torch.tracker.tracker import pool_warp_operands
 
-    warp_pool = wp_mod.warp_pool
     one = lambda tree: tree.map(lambda a: a[None])
-    rows = []
-    for label, frames in (("one streamed frame", 1), (f"a chunk of {EVAL_CHUNK} frames", EVAL_CHUNK),
-                          (f"a sequence of {EVAL_FRAMES} frames", EVAL_FRAMES)):
-        pool, coords, src = pool_warp_operands(
-            config, one(rig), one(seq.map(lambda a: a[:frames])), one(hand))
-        before = warp_pool.paths["vector"]
-        out_k = warp_pool(pool, coords, src)
-        out_p = bilinear_sample_pool_plain(pool, coords, src)
-        torch.cuda.synchronize()
-        check(warp_pool.paths["vector"] == before + 1, f"{label}: not the vector path")
-        check(bool(torch.isfinite(out_k).all()), f"{label}: non-finite output")
-        err = float((out_k - out_p).abs().max())
-        check(err <= KERNEL_ATOL, f"{label}: kernel vs plain {err}")
-        ms = median_ms(lambda: warp_pool(pool, coords, src), reps=20)
-        kernel_ms = device_ms(lambda: wp_mod._launch(pool, coords, src), reps=40)
-        seen = device_ms.seen
-        check_ms = burst_ms(lambda: wp_mod._check(pool, coords, src), BURST)
-        plain_ms = median_ms(lambda: bilinear_sample_pool_plain(pool, coords, src), reps=10)
-        bound_ms, bound_by, text = byte_bound(pool, coords, src)
-        log(f"[kernel] eval shape, {label}: pool {tuple(pool.shape)} uint8, {coords.shape[0]} warps of "
-            f"{tuple(coords.shape[1:3])}, path vector, max_abs_err {err:.3e}, bit for bit "
-            f"{bool(torch.equal(out_k, out_p))}, nonzero samples {float((out_k != 0).float().mean()):.3f}; "
-            f"{ms:.4f} ms a call of the wrapper (its src_idx range check alone {check_ms:.4f} ms), kernel "
-            f"alone {kernel_ms:.4f} ms (device time, the profiler saw {seen} of 40 launches), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({text}), share {bound_ms / kernel_ms:.3f} of "
-            f"the kernel alone [{card}]")
-        rows.append(dict(shape=label, pool=list(pool.shape), warps=coords.shape[0], max_abs_err=err,
-                         ms=ms, kernel_ms=kernel_ms, check_ms=check_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-    return rows
+    return [
+        pool_shape_row(wp_mod, f"eval shape, {label}", *pool_warp_operands(
+            config, one(rig), one(seq.map(lambda a: a[:frames])), one(hand)), card)
+        for label, frames in (("one streamed frame", 1), (f"a chunk of {EVAL_CHUNK} frames", EVAL_CHUNK),
+                              (f"a sequence of {EVAL_FRAMES} frames", EVAL_FRAMES))
+    ]
+
+
+def pool_shape_row(wp_mod, label, pool, coords, src, card):
+    """The pool kernel against its plain version on the vector path at one
+    shape a path gives it; its times and byte bound as a row of numbers."""
+    import torch
+    from umetrack_torch.ops.resample import bilinear_sample_pool_plain
+
+    warp_pool = wp_mod.warp_pool
+    before = warp_pool.paths["vector"]
+    out_k = warp_pool(pool, coords, src)
+    out_p = bilinear_sample_pool_plain(pool, coords, src)
+    torch.cuda.synchronize()
+    check(warp_pool.paths["vector"] == before + 1, f"{label}: not the vector path")
+    check(bool(torch.isfinite(out_k).all()), f"{label}: non-finite output")
+    err = float((out_k - out_p).abs().max())
+    check(err <= KERNEL_ATOL, f"{label}: kernel vs plain {err}")
+    ms = median_ms(lambda: warp_pool(pool, coords, src), reps=20)
+    kernel_ms = device_ms(lambda: wp_mod._launch(pool, coords, src), reps=40)
+    seen = device_ms.seen
+    check_ms = burst_ms(lambda: wp_mod._check(pool, coords, src), BURST)
+    plain_ms = median_ms(lambda: bilinear_sample_pool_plain(pool, coords, src), reps=10)
+    bound_ms, bound_by, text = byte_bound(pool, coords, src)
+    log(f"[kernel] {label}: pool {tuple(pool.shape)} uint8, {coords.shape[0]} warps of "
+        f"{tuple(coords.shape[1:3])}, path vector, max_abs_err {err:.3e}, bit for bit "
+        f"{bool(torch.equal(out_k, out_p))}, nonzero samples {float((out_k != 0).float().mean()):.3f}; "
+        f"{ms:.4f} ms a call of the wrapper (its src_idx range check alone {check_ms:.4f} ms), kernel "
+        f"alone {kernel_ms:.4f} ms (device time, the profiler saw {seen} of 40 launches), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({text}), share {bound_ms / kernel_ms:.3f} of "
+        f"the kernel alone [{card}]")
+    return dict(shape=label, pool=list(pool.shape), warps=coords.shape[0], max_abs_err=err,
+                ms=ms, kernel_ms=kernel_ms, check_ms=check_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def same_crops_gap(model, config, rig, seq, hand):
@@ -1421,6 +1473,307 @@ def phase_eval_cpu_vs_card(models):
                 f"{ds:.3e} (<= {bounds.scale})")
 
 
+# ---- the training slice ------------------------------------------------------
+
+
+def small_train_batches(device):
+    """The CPU tests' batches at their small config: one single-frame
+    batch and one K-frame window made from K single-frame draws (the rows
+    keep their hand, the crop cameras drift by 1 cm a frame), built on the
+    CPU and moved to ``device``."""
+    import torch
+    from umetrack_torch.kinematics.hand import from_dict, load_generic_hand_dict
+    from umetrack_torch.models import FrameInputs
+    from umetrack_torch.parallel.train import TemporalTrainBatch, synthetic_train_batch
+
+    hand = from_dict(load_generic_hand_dict())
+    frame = synthetic_train_batch(0, TRAIN_B, hand, device="cpu")
+    draws = [synthetic_train_batch(10 + k, TRAIN_B, hand, device="cpu") for k in range(TRAIN_K)]
+    f0 = draws[0].frame
+    extr = f0.extrinsics[:, None].repeat(1, TRAIN_K, 1, 1, 1)
+    extr[..., :3, 3] += 0.01 * torch.arange(TRAIN_K, dtype=torch.float32)[None, :, None, None]
+    window = TemporalTrainBatch(
+        frames=FrameInputs(
+            images=torch.stack([d.frame.images for d in draws], dim=1),
+            intrinsics=f0.intrinsics[:, None].repeat(1, TRAIN_K, 1, 1, 1),
+            extrinsics=extr,
+            n_views=f0.n_views[:, None].repeat(1, TRAIN_K),
+            hand_idx=f0.hand_idx[:, None].repeat(1, TRAIN_K),
+            use_memory=(torch.arange(TRAIN_K) > 0).expand(TRAIN_B, TRAIN_K).contiguous(),
+        ),
+        skeleton=draws[0].skeleton,
+        gt_joint_angles=torch.stack([d.gt_joint_angles for d in draws], dim=1),
+        gt_wrist_world=torch.stack([d.gt_wrist_world for d in draws], dim=1),
+        hand=draws[0].hand, gt_scales=draws[0].gt_scales,
+    )
+    return frame.to(device), window.to(device)
+
+
+def grad_gaps(grads, want):
+    """(worst relative L2 gap over the ordinary leaves, over the first
+    layers, worst zero-gradient leaf's norm over the whole gradient's) of
+    ``grads`` against ``want``, both {name: tensor} on the CPU; each held to
+    the bounds of tests/test_torch_train.py."""
+    import torch
+
+    total = float(torch.sqrt(sum((g.double() ** 2).sum() for g in want.values())))
+    ordinary = first = noise = 0.0
+    for name, g in grads.items():
+        w = want[name]
+        if name in ZERO_GRAD_LEAVES:
+            noise = max(noise, float(max(g.norm(), w.norm())) / total)
+            continue
+        rel = float((g - w).norm() / w.norm())
+        if name.startswith(FIRST_LAYERS):
+            first = max(first, rel)
+        else:
+            ordinary = max(ordinary, rel)
+    check(ordinary <= GRAD_REL_L2 and first <= FIRST_LAYERS_REL_L2 and noise <= ZERO_GRAD_NOISE,
+          f"gradient gaps {ordinary}, first layers {first}, zero-gradient leaves {noise}")
+    return ordinary, first, noise
+
+
+def phase_train_cpu_vs_card():
+    """One ``train_step`` and one ``temporal_train_step`` (K=4) on the card
+    against the CPU from the same seeded weights and batch, TF32 off: the
+    loss, every metric, every gradient leaf and the BatchNorm running stats
+    after the step, at the CPU tests' small config and bounds."""
+    import torch
+    from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.parallel import ClippedAdamW, create_train_state, temporal_train_step, train_step
+
+    frame, window = small_train_batches("cpu")
+    for label, step_fn, batch in (("train_step", train_step, frame),
+                                  (f"temporal_train_step K={TRAIN_K}", temporal_train_step, window)):
+        out = {}
+        with tf32_off():
+            for dev in ("cpu", "cuda"):
+                model = make_model(ModelConfig(**TRAIN_SMALL), seed=0, device=dev)
+                state = create_train_state(model, ClippedAdamW(model.parameters(), 1e-3, 1e-5))
+                metrics = step_fn(state, batch.to(dev))
+                out[dev] = ({k: float(v) for k, v in metrics.items()},
+                            {n: p.grad.cpu() for n, p in model.named_parameters()},
+                            {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
+        (m_gpu, g_gpu, s_gpu), (m_cpu, g_cpu, s_cpu) = out["cuda"], out["cpu"]
+        check(all(math.isfinite(v) for v in m_gpu.values()), f"{label}: non-finite metrics {m_gpu}")
+        check(all(abs(m_gpu[k] - m_cpu[k]) <= LOSS_RTOL * abs(m_cpu[k]) + 1e-7 for k in m_cpu),
+              f"{label}: metrics {m_gpu} against {m_cpu}")
+        d_metric = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu if m_cpu[k])
+        ordinary, first, noise = grad_gaps(g_gpu, g_cpu)
+        d_stats = max(float(((s_gpu[k] - s_cpu[k]).abs() / (1 + s_cpu[k].abs())).max()) for k in s_cpu)
+        check(d_stats <= STATS_TOL, f"{label}: running stats differ by {d_stats}")
+        log(f"[train-cpu-vs-card] {label}, small config (B={TRAIN_B}), TF32 off: loss {m_gpu['loss']:.6f}, "
+            f"metrics within {d_metric:.3e} relative (<= {LOSS_RTOL}); gradient leaves within "
+            f"{ordinary:.3e} relative L2 (<= {GRAD_REL_L2}), the first layers within {first:.3e} "
+            f"(<= {FIRST_LAYERS_REL_L2}), the zero-gradient biases' noise {noise:.3e} of the gradient's "
+            f"norm (<= {ZERO_GRAD_NOISE}); BatchNorm running stats within {d_stats:.3e} (<= {STATS_TOL})")
+
+
+def phase_resident(wp_mod, wi_mod, card):
+    """The device-resident trainer at the JAX package's defaults: tracker
+    crops prepared on the card (one ``warp_pool`` launch a sequence), the
+    corpus built, then ``run_resident_training`` at full width; its steps/s,
+    loss, eval MPJPE, peak memory and one step under the profiler.  Returns
+    the pool launches and the prepared material's first rendered sequence's
+    kernel row."""
+    import torch
+    from umetrack_torch.apps.train import prepare_tracker_sequences
+    from umetrack_torch.models import ModelConfig
+    from umetrack_torch.parallel import LossWeights, init_train_model, resident
+
+    reset_launches(wp_mod, wi_mod)
+    t0 = time.perf_counter()
+    entries = prepare_tracker_sequences(RES_SEQS, RES_T, scale_jitter=0.15, device="cuda")
+    prep_s = time.perf_counter() - t0
+    counts = launches(wp_mod, wi_mod)
+    check(counts == (RES_SEQS, 0, 0), f"prepare_tracker_sequences: launches (pool, full, windowed) {counts}")
+    check(all(math.isfinite(float(e["images"].sum())) for e in entries), "non-finite crops")
+    n_valid = sum(int(e["hand_valid"].sum()) for e in entries)
+    log(f"[resident] prepare_tracker_sequences {RES_SEQS} sequences x {RES_T} frames (capsule-rendered, "
+        f"hand scale jitter 0.15) on the card in {prep_s:.1f} s: one warp_pool launch a sequence, crops "
+        f"finite, {n_valid}/{RES_SEQS * RES_T * 2} valid hands [{card}]")
+
+    corpus = resident.build_resident_corpus(entries, device="cuda")
+    del entries
+    model = init_train_model(ModelConfig(), seed=0, device="cuda")
+    marks = [time.perf_counter()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wp_mod, wi_mod)
+    t0 = time.perf_counter()
+    state, hist = resident.run_resident_training(
+        model, corpus, num_steps=RES_STEPS, seqs_per_batch=16, window=8, learning_rate=3e-4,
+        log_every=1, eval_every=RES_STEPS, augment=True, seed=0,
+        log_fn=lambda m: marks.append(time.perf_counter()),
+    )
+    wall_s = time.perf_counter() - t0
+    check(launches(wp_mod, wi_mod) == (0, 0, 0), "the resident loop launched a warp kernel")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = sorted(b - a for a, b in zip(marks[6:-2], marks[7:-1]))  # steps 6 .. RES_STEPS-2
+    step_ms = steps[len(steps) // 2] * 1e3
+    first, last = hist[0], hist[-1]
+    check(len(hist) == RES_STEPS and all(math.isfinite(h["loss"]) for h in hist), "non-finite loss")
+    check(last["loss"] < first["loss"], f"loss did not fall: {first['loss']} -> {last['loss']}")
+    check(math.isfinite(last["eval_mpjpe_mm"]) and math.isfinite(last["eval_mpjpa_deg"]),
+          f"eval MPJPE {last.get('eval_mpjpe_mm')}")
+    rows = 2 * 16
+    log(f"[resident] run_resident_training full ModelConfig() f32, {rows} hand rows x K=8, AdamW 3e-4, "
+        f"clip 1.0, warmup-cosine, augment on, {RES_STEPS} steps in {wall_s:.1f} s: loss "
+        f"{first['loss']:.4f} -> {last['loss']:.4f}, eval MPJPE {first['eval_mpjpe_mm']:.1f} -> "
+        f"{last['eval_mpjpe_mm']:.1f} mm, MPJPA {last['eval_mpjpa_deg']:.2f} deg; "
+        f"{step_ms:.1f} ms/step median of steps 6-{RES_STEPS - 2} ({1e3 / step_ms:.2f} steps/s, "
+        f"{rows * 8 * 1e3 / step_ms:.1f} training frames/s; fastest {steps[0] * 1e3:.1f}, slowest "
+        f"{steps[-1] * 1e3:.1f} ms), peak mem {peak:.2f} GiB [{card}]")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    idx = torch.arange(16, device="cuda") % RES_SEQS
+    step = lambda: resident.resident_train_step(state, corpus, idx, 0, LossWeights(), min(8, RES_T), gen)
+    step()
+    prof = phase_profile(step, f"one resident train step ({rows} rows x K=8, full width)", None, card,
+                         top=15)
+    log(f"[resident] one step: {prof['launches']} kernel launches, device {prof['device_ms']:.1f} ms: "
+        f"{prof['device_ms'] / step_ms:.3f} of the median step unprofiled ({step_ms:.1f} ms; the "
+        f"profiler stretched the step to {prof['wall_ms']:.1f} ms); the warp kernels' share 0 (the "
+        f"corpus is already cropped) [{card}]")
+    return counts[0]
+
+
+def phase_train_app(wp_mod, wi_mod, card):
+    """``apps/train.py::main`` on synthetic 120 x 160 batches (one
+    ``warp_image_full`` launch a batch) and on a 480 x 640 idx/bin training
+    tree (one ``warp_image_windowed`` launch a batch); the final
+    ``.msgpack`` loads back and its forward equals the trained model's.
+    Returns the launches and one train-app step's profile."""
+    import torch
+    from umetrack_torch.apps import train as app
+    from umetrack_torch.models import ModelConfig, TemporalState, UmeTrackNet
+    from umetrack_torch.utils.checkpoints import load_checkpoint
+    from umetrack_torch.utils.synthetic import write_torchdata_corpus
+
+    with tempfile.TemporaryDirectory(prefix="umetrack_train_") as tmp:
+        ckpts = os.path.join(tmp, "ckpts")
+        reset_launches(wp_mod, wi_mod)
+        t_syn, (state, hist) = wall_ms(lambda: app.main([
+            "--synthetic", "--steps", str(APP_STEPS), "--batch-size", "32", "--window", "8",
+            "--checkpoint-dir", ckpts]))
+        counts_syn = launches(wp_mod, wi_mod)
+        check(counts_syn == (0, APP_STEPS, 0),
+              f"train app, synthetic: launches (pool, full, windowed) {counts_syn} in {APP_STEPS} batches")
+        check(all(math.isfinite(v) for v in hist), f"train app, synthetic: loss {hist}")
+        check(os.listdir(ckpts) == ["final.msgpack"], f"checkpoints {os.listdir(ckpts)}")
+        loaded = UmeTrackNet(ModelConfig())
+        loaded.load_state_dict(load_checkpoint(os.path.join(ckpts, "final.msgpack")))
+        loaded = loaded.cuda().eval()
+        trained = state.model.eval()
+        batch = next(app.synthetic_batches(4, (96, 96), device="cuda"))
+        with torch.no_grad():
+            zero = TemporalState.zeros(4, trained.config, device="cuda")
+            a, _ = trained.known_skeleton(batch.frame, batch.skeleton, zero)
+            b, _ = loaded.known_skeleton(batch.frame, batch.skeleton, zero)
+        gap = max(float((x - y).abs().max()) for x, y in (
+            (a.joint_angles, b.joint_angles), (a.wrist_xfs, b.wrist_xfs),
+            (a.landmark_uncertainty_sigmas, b.landmark_uncertainty_sigmas)))
+        check(gap == 0.0, f"the reloaded checkpoint's forward differs by {gap}")
+        log(f"[train-app] main --synthetic --steps {APP_STEPS} --batch-size 32 --window 8, full "
+            f"ModelConfig() f32: {t_syn / 1e3:.1f} s ({APP_STEPS / t_syn * 1e3:.2f} steps/s with start-up), "
+            f"loss {hist[0]:.4f} -> {hist[-1]:.4f}, one warp_image_full launch per batch; final.msgpack "
+            f"reloaded: eval-mode forward equal bit for bit [{card}]")
+
+        root = os.path.join(tmp, "tree")
+        t0 = time.perf_counter()
+        write_torchdata_corpus(root, n_train=TREE_SEQS, n_test=0, t=8, v=TD_V, h=TD_H, w=TD_W)
+        write_s = time.perf_counter() - t0
+        tree_steps = TREE_SEQS // TREE_BATCH
+        reset_launches(wp_mod, wi_mod)
+        t_tree, (_, hist_tree) = wall_ms(lambda: app.main([
+            "--data", root, "--steps", str(tree_steps), "--batch-size", str(TREE_BATCH), "--window", "8"]))
+        counts_tree = launches(wp_mod, wi_mod)
+        check(counts_tree == (0, 0, tree_steps),
+              f"train app, 480 x 640 tree: launches (pool, full, windowed) {counts_tree} in {tree_steps} batches")
+        check(all(math.isfinite(v) for v in hist_tree), f"train app, tree: loss {hist_tree}")
+        log(f"[train-app] main --data <{TREE_SEQS} training sequences x 8 frames x {TD_V} views of "
+            f"{TD_H} x {TD_W}, written in {write_s:.1f} s> --steps {tree_steps} --batch-size {TREE_BATCH} "
+            f"--window 8: {t_tree / 1e3:.1f} s, one warp_image_windowed launch per batch [{card}]")
+    return counts_syn[1], counts_tree[2]
+
+
+def phase_train_kernels(wp_mod, wi_mod, card):
+    """The three kernels against their plain version at the shapes the
+    training path gives them (a prepared sequence of 16 frames for the pool,
+    a 480 x 640 training batch for the windowed warp, a 120 x 160 synthetic
+    batch for the full warp), their times and byte bounds; then one step of
+    the train app (batch build + TBPTT step) under the profiler.  Returns a
+    row per kernel."""
+    import numpy as np
+    import torch
+    from umetrack_torch.apps import train as app
+    from umetrack_torch.models import ModelConfig
+    from umetrack_torch.parallel import ClippedAdamW, create_train_state, init_train_model
+    from umetrack_torch.parallel import temporal_train_step
+    from umetrack_torch.tracker import TrackerConfig
+    from umetrack_torch.tracker.tracker import pool_warp_operands
+    from umetrack_torch.utils.synthetic import make_labels_dict, make_torchdata_sample, our_sequence
+
+    one = lambda tree: tree.map(lambda a: a[None])
+    scale = float(np.random.default_rng(5000).uniform(0.85, 1.15))
+    labels, images = make_labels_dict(RES_T, rng_seed=5000, with_dropout=False, hand_scale=scale,
+                                      device="cuda")
+    rig, seq, hand = our_sequence(labels, images, "cuda")
+    rows = {"warp_pool": pool_shape_row(
+        wp_mod, f"training shape, a prepared sequence of {RES_T} frames",
+        *pool_warp_operands(TrackerConfig(), one(rig), one(seq), one(hand)), card)}
+
+    for name, (n, h, w) in (("warp_image_windowed", (TREE_BATCH, TD_H, TD_W)),
+                            ("warp_image_full", (32, 120, 160))):
+        label = f"training shape, a batch of {n} x 8 x {TD_V} frames of {h} x {w}"
+        images, coords = torchdata_warp_operands(torchdata_batch(n, 8, h, w, seed0=60))
+        err = compare_image_kernels(wi_mod, images, coords, label)[0]
+        rows[name] = dict(shape=label, max_abs_err=err,
+                          **time_image_kernels(wi_mod, images, coords, label, card)[name])
+        del images, coords
+
+    items = [dict(zip(("mono", "labels"), make_torchdata_sample(rng_seed=i, t=8, hand_idx=i % 2)))
+             for i in range(32)]
+    model = init_train_model(ModelConfig(), seed=0, device="cuda")
+    state = create_train_state(model, ClippedAdamW(model.parameters(), 1e-4, 1e-5))
+    step = lambda: temporal_train_step(state, app._batch_from_sequences(items, (96, 96), 8, device="cuda"))
+    step()
+    phase_profile(step, "one train-app step (32 sequences x 8 frames of 120 x 160: batch build + "
+                  "TBPTT step)", "warp_image_full_kernel", card, top=10)
+    return rows
+
+
+def phase_distill(wp_mod, wi_mod, card):
+    """``run_distillation`` with a ``.torch`` teacher written from the
+    trained checkpoint under the original model's names: finite gaps and
+    the evaluation metric set.  Returns the launches of the two kernels."""
+    import torch
+    from umetrack_torch.apps import distill
+    from umetrack_torch.models.convert import reference_module_names
+    from umetrack_torch.utils.checkpoints import load_checkpoint
+
+    names = {ours: ref for ref, ours in reference_module_names().items()}
+    with tempfile.TemporaryDirectory(prefix="umetrack_distill_") as tmp:
+        path = os.path.join(tmp, "teacher.torch")
+        torch.save({f"{names[k.rsplit('.', 1)[0]]}.{k.rsplit('.', 1)[1]}": v
+                    for k, v in load_checkpoint(CHECKPOINT).items()}, path)
+        reset_launches(wp_mod, wi_mod)
+        t_ms, (gaps, final) = wall_ms(lambda: distill.run_distillation(
+            steps=DISTILL_STEPS, batch_size=8, eval_every=5, teacher_checkpoint=path,
+            n_eval_sequences=DISTILL_EVAL_SEQS, device="cuda"))
+        counts = launches(wp_mod, wi_mod)
+    check(counts == (2 * DISTILL_EVAL_SEQS, DISTILL_STEPS + 1, 0),
+          f"distillation: launches (pool, full, windowed) {counts}")
+    check(len(gaps) == DISTILL_STEPS // 5 + 1 and all(math.isfinite(g) for g in gaps), f"gaps {gaps}")
+    keys = ("mpjpe_mm", "mpjpa_deg", "pck_auc", "success_rate", "mean_keypoint_acceleration")
+    check(all(k in final and math.isfinite(final[k]) for k in keys), f"metric set {final}")
+    log(f"[distill] run_distillation steps={DISTILL_STEPS} batch 8, teacher = the checkpoint as a .torch "
+        f"file under the original names: {t_ms / 1e3:.1f} s, gaps {', '.join(f'{g:.1f}' for g in gaps)} mm; "
+        f"tracked against the teacher on {DISTILL_EVAL_SEQS} rendered sequences: "
+        f"{', '.join(f'{k} {final[k]:.4f}' for k in keys)}; launches: warp_image_full {counts[1]} "
+        f"(one a batch), warp_pool {counts[0]} (one a tracked sequence) [{card}]")
+    return counts
+
+
 def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
     """``launches``: the kernel's launches over the main paths' runs, each
     path counted from 0 (``launches_by_path`` says which path made how many).
@@ -1493,17 +1846,37 @@ def main():
     phase_eval_cpu_vs_card([("seeded weights", model_cpu, model_cuda, STRICT),
                             ("checkpoint", ckpt_cpu, ckpt_cuda, TRAINED_CPU)])
 
+    del ckpt_cpu, ckpt_cuda, models, model_cpu, model_cuda, tracker
+    torch.cuda.empty_cache()
+
+    # the training slice: each entry-point call counted from 0 (the
+    # comparisons with the plain versions, phase_train_kernels, come before
+    # the resident step's profile, after which the profiler loses launches)
+    t_train = time.perf_counter()
+    phase_train_cpu_vs_card()
+    train_rows = phase_train_kernels(wp_mod, wi_mod, card)
+    prep_launches = phase_resident(wp_mod, wi_mod, card)
+    torch.cuda.empty_cache()
+    syn_launches, tree_launches = phase_train_app(wp_mod, wi_mod, card)
+    distill_pool, distill_full, _ = phase_distill(wp_mod, wi_mod, card)
+    log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [
         kernel_entry("warp_pool", "umetrack_torch/csrc/warp_pool.cu",
                      "umetrack_tpu/ops/pallas_resample.py:243",
-                     {"tracker": pool_launches, "raw_data eval": tally.total}, pool_kern, eval_shapes),
+                     {"tracker": pool_launches, "raw_data eval": tally.total,
+                      "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool},
+                     pool_kern, eval_shapes + [train_rows["warp_pool"]]),
         kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",
-                     "umetrack_tpu/ops/pallas_resample.py:174", {"torch_data": win_launches},
-                     image_kern["warp_image_windowed"]),
+                     "umetrack_tpu/ops/pallas_resample.py:174",
+                     {"torch_data": win_launches, "train app 480 x 640 tree": tree_launches},
+                     image_kern["warp_image_windowed"], [train_rows["warp_image_windowed"]]),
         kernel_entry("warp_image_full", "umetrack_torch/csrc/warp_image.cu",
-                     "umetrack_tpu/ops/pallas_resample.py:68", {"torch_data 120 x 160": full_launches},
-                     image_kern["warp_image_full"]),
+                     "umetrack_tpu/ops/pallas_resample.py:68",
+                     {"torch_data 120 x 160": full_launches, "train app synthetic": syn_launches,
+                      "distill": distill_full},
+                     image_kern["warp_image_full"], [train_rows["warp_image_full"]]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

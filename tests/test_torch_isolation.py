@@ -27,6 +27,8 @@ NEW_MODULES = (
     "metrics.py", "apps/sequence_eval.py", "apps/run_eval_known_skeleton.py",
     "apps/run_eval_unknown_skeleton.py", "apps/load_eval.py", "utils/checkpoints.py",
     "utils/profiling.py", "utils/render.py", "tracker/video.py",
+    "config.py", "parallel/train.py", "parallel/optim.py", "parallel/resident.py",
+    "apps/train.py", "apps/distill.py",
 )
 
 
@@ -94,7 +96,8 @@ import sys
 sys.modules["cv2"] = None  # import cv2 -> ImportError
 import importlib
 for name in ("tracker.video", "utils.synthetic", "utils.render", "apps.sequence_eval",
-             "apps.run_eval_known_skeleton", "apps.run_eval_unknown_skeleton", "apps.load_eval"):
+             "apps.run_eval_known_skeleton", "apps.run_eval_unknown_skeleton", "apps.load_eval",
+             "config", "parallel.resident", "apps.train", "apps.distill"):
     importlib.import_module("umetrack_torch." + name)
 from umetrack_torch.utils import synthetic
 labels, images = synthetic.make_labels_dict(1, rng_seed=0, render=False, device="cpu")

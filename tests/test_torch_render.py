@@ -248,8 +248,11 @@ def test_make_torchdata_sample_rendered():
     lambda: R.render_pinhole_sequence(np.zeros((1, 1, 21, 3), np.float32), np.eye(4)[None],
                                       np.eye(3)[None], np.zeros((1, 1, 48, 64), np.uint8),
                                       np.random.default_rng(0)),
+    lambda: S.smooth_images(np.random.default_rng(0), 1, n=1, h=48, w=64),
+    lambda: S.our_sequence(*S.make_labels_dict(1, rng_seed=0, render=False, device="cpu")),
 ], ids=["make_labels_dict", "make_labels_dict_noise", "render_fisheye_sequence",
-        "make_torchdata_sample", "render_sequence", "render_pinhole_sequence"])
+        "make_torchdata_sample", "render_sequence", "render_pinhole_sequence",
+        "smooth_images", "our_sequence"])
 def test_generators_render_on_the_card_unless_asked_for_the_cpu(call, monkeypatch):
     """No device given means CUDA: without a card the call raises and never
     renders on the CPU unasked."""

@@ -4,7 +4,9 @@ Counterpart of ``umetrack_tpu/models/backbone.py``: stem conv + BN + ReLU +
 maxpool/2, four BasicBlock stages, then a 1x1 projection to the
 image-feature channels.  Submodule names follow the flax tree
 (``stem_conv``, ``stage0_block0.conv1``, ``proj_conv``, ...) so that
-``models/convert.py`` maps the JAX weights by a plain walk.
+``models/convert.py`` maps the JAX weights by a plain walk.  Every
+normalisation layer of the model is :class:`BatchNorm`, whose train mode
+is flax's.
 """
 from __future__ import annotations
 
@@ -15,6 +17,28 @@ from torch.nn import functional as F
 from .config import ModelConfig
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running <- 0.9 * running + 0.1 * batch
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is flax's ``nn.BatchNorm(
+    use_running_average=not train, momentum=0.9, epsilon=1e-5)``: the batch
+    is normalised with its own mean and biased variance, and the running
+    stats move to ``0.9 * old + 0.1 * batch`` with the BIASED variance
+    (``nn.BatchNorm2d`` puts the unbiased one into ``running_var``).  Eval
+    mode is ``nn.BatchNorm2d``'s own."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class BasicBlock(nn.Module):
@@ -24,12 +48,12 @@ class BasicBlock(nn.Module):
                  use_downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm(planes)
         if use_downsample:
             self.downsample_conv = nn.Conv2d(in_planes, planes, 1, stride, bias=False)
-            self.downsample_bn = nn.BatchNorm2d(planes, eps=BN_EPS)
+            self.downsample_bn = BatchNorm(planes)
         self.use_downsample = use_downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -47,7 +71,7 @@ class ResNetBackbone(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.stem_conv = nn.Conv2d(1, cfg.start_planes, 3, padding=1, bias=True)
-        self.stem_bn = nn.BatchNorm2d(cfg.start_planes, eps=BN_EPS)
+        self.stem_bn = BatchNorm(cfg.start_planes)
         self.blocks = []
         in_planes = cfg.start_planes
         for si, (n_blocks, stride) in enumerate(zip(cfg.backbone_blocks, cfg.backbone_strides)):

@@ -15,7 +15,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._tree import TensorTree
-from .backbone import BN_EPS, BasicBlock
+from .backbone import BasicBlock, BatchNorm
 from .config import ModelConfig
 from .procrustes import procrustes_align
 
@@ -30,7 +30,7 @@ class MultiViewFusion(nn.Module):
         self.n_blocks = n_blocks
         for i in range(n_blocks):
             self.add_module(f"conv{i}", nn.Conv2d(channels[i], channels[i + 1], 1))
-            self.add_module(f"bn{i}", nn.BatchNorm2d(channels[i + 1], eps=BN_EPS))
+            self.add_module(f"bn{i}", BatchNorm(channels[i + 1]))
         self.conv_out = nn.Conv2d(channels[-1], nc_out, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +68,7 @@ class SkeletonEncoder(nn.Module):
         self.feature_map_size = tuple(feature_map_size)
         h, w = self.feature_map_size
         self.linear = nn.Linear(n_joints * 6, out_channels * h * w)
-        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS)
+        self.bn = BatchNorm(out_channels)
 
     def forward(self, joint_rotation_axes: torch.Tensor,
                 joint_rest_positions: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,417 @@
+"""The supervised training step: single-frame and TBPTT.
+
+Counterpart of ``umetrack_tpu/parallel/train.py`` on one device.  The loss
+avoids differentiating through the wrist decode:
+
+- joint-angle MSE over the 20 actuated DoF;
+- wrist supervision on the raw predicted rigid points in crop-cam0 space
+  against the GT-transformed canonical points, split into the centroid
+  (translation) and the centred (rotation-carrying) error;
+- landmark Gaussian NLL: landmarks skinned from the predicted angles and the
+  GT wrist, scored against the GT landmarks under the predicted sigmas;
+- the masked log-scale MSE of the scale head;
+- for a TBPTT window, the squared error of the landmarks' and wrist points'
+  second difference over time (``accel``).
+
+The model runs in train mode: BatchNorm normalises with the batch's own
+statistics and updates its running stats in place, flax's way
+(``models/backbone.py::BatchNorm``).  Two consequences shape this module:
+
+- the TBPTT window runs the WHOLE model once per frame, so each frame's
+  batch gives its own statistics and its own running-stat update, as the
+  JAX scan does (hoisting the feature extractor over the K frames, as the
+  tracker does in eval mode, would make one update over K frames);
+- :func:`loss_fn` keeps the running stats of the known-skeleton pass only:
+  the scale head's pass restores them (the JAX loss drops that pass's
+  ``batch_stats``), while :func:`temporal_loss_fn` keeps both, as its JAX
+  counterpart does.
+
+No activation checkpointing: ``torch.utils.checkpoint`` runs the forward
+again in backward and would update the running stats a second time.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .._tree import TensorTree
+from ..geometry import affine
+from ..kinematics.hand import HandModel, scaled_hand_model
+from ..kinematics.skinning import skin_landmarks
+from ..models.backbone import BatchNorm
+from ..models.components import gen_rigid_points
+from ..models.umetrack import FrameInputs, SkeletonInputs, TemporalState, UmeTrackNet, make_model
+from .optim import ClippedAdamW
+
+
+@dataclasses.dataclass
+class TrainBatch(TensorTree):
+    """One batch of supervised hand samples (meters)."""
+
+    frame: FrameInputs
+    skeleton: SkeletonInputs  # [B, 22, 3] each
+    gt_joint_angles: torch.Tensor  # [B, 22]
+    gt_wrist_world: torch.Tensor  # [B, 4, 4] left convention, meters
+    hand: HandModel  # batched [B, ...] (left, meters)
+    gt_scales: Optional[torch.Tensor] = None  # [B]
+    # Per-row supervision mask: rows whose crops were invalid are not
+    # trained against real GT on a meaningless fallback crop.  None = all.
+    valid: Optional[torch.Tensor] = None  # [B] bool
+
+
+@dataclasses.dataclass
+class TemporalTrainBatch(TensorTree):
+    """A batch of K-frame supervised windows (meters), time axis second:
+    ``frames.use_memory`` is False at k=0 and True after, and the extrinsics
+    move frame to frame so the memory's motion compensation is in the
+    gradient path."""
+
+    frames: FrameInputs  # leaves [B, K, ...]
+    skeleton: SkeletonInputs  # [B, 22, 3] each
+    gt_joint_angles: torch.Tensor  # [B, K, 22]
+    gt_wrist_world: torch.Tensor  # [B, K, 4, 4] left convention, meters
+    hand: HandModel  # batched [B, ...] (left, meters)
+    gt_scales: Optional[torch.Tensor] = None  # [B]
+    valid: Optional[torch.Tensor] = None  # [B, K] bool
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    angles: float = 1.0
+    wrist_points: float = 1.0
+    landmark_nll: float = 0.1
+    scale: float = 0.1
+    # Extra gain on the centred component of the wrist-point error (1.0 =
+    # the plain MSE, which splits exactly into centroid + centred error).
+    wrist_rot_gain: float = 1.0
+    # Temporal-smoothness weight (temporal_loss_fn only), in meters^2 of
+    # acceleration: amplitudes are ~1e-3 m, so useful weights are O(1e3).
+    accel: float = 0.0
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model being trained (its parameters and BatchNorm running stats),
+    its optimizer, and the number of steps taken."""
+
+    model: UmeTrackNet
+    optimizer: ClippedAdamW
+    step: int = 0
+
+
+def create_train_state(model: UmeTrackNet, optimizer: ClippedAdamW) -> TrainState:
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def init_train_model(config=None, seed: int = 0, device=None) -> UmeTrackNet:
+    """A model to train from scratch on ``device`` (CUDA unless "cpu"):
+    seeded random weights with fresh BatchNorm running stats (mean 0, var 1,
+    as flax initialises them)."""
+    model = make_model(config, seed=seed, device=resolve_device(device))
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.reset_running_stats()
+    return model
+
+
+@contextlib.contextmanager
+def running_stats_kept(model: UmeTrackNet):
+    """Leave every BatchNorm running stat as it was on entry: a train-mode
+    pass inside normalises with batch statistics but keeps no update."""
+    stats = [b for m in model.modules() if isinstance(m, BatchNorm)
+             for b in (m.running_mean, m.running_var)]
+    saved = [b.clone() for b in stats]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(stats, saved):
+                b.copy_(s)
+
+
+def _rigid_points(model: UmeTrackNet, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(
+        gen_rigid_points(model.config.n_wrist_rigid_pts), dtype=like.dtype, device=like.device
+    )
+
+
+def _x_mirrored(wrist: torch.Tensor, hand_idx: torch.Tensor) -> torch.Tensor:
+    """The wrist transforms [..., 4, 4] with their x basis column negated
+    where ``hand_idx`` [...] is 1 (right hands)."""
+    sign = torch.where(hand_idx == 1, -1.0, 1.0).to(wrist.dtype)
+    ones = torch.ones_like(sign)
+    return wrist * torch.stack([sign, ones, ones, ones], dim=-1)[..., None, :]
+
+
+def _frame_losses(
+    model: UmeTrackNet,
+    out,
+    frame: FrameInputs,
+    gt_joint_angles: torch.Tensor,
+    gt_wrist_world: torch.Tensor,
+    hand: HandModel,
+    valid: Optional[torch.Tensor] = None,  # [B] bool row mask
+    rot_gain: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-frame supervised terms shared by the single-frame and TBPTT
+    losses: (angle MSE, wrist rigid-point MSE in cam0, landmark NLL,
+    valid-row count), each a sum over valid rows of a per-row mean; callers
+    divide by the count, so masked rows contribute exactly nothing."""
+    b = gt_joint_angles.shape[0]
+    w_row = (
+        torch.ones((b,), dtype=torch.float32, device=gt_joint_angles.device)
+        if valid is None else valid.to(torch.float32)
+    )
+    count = w_row.sum()
+
+    # 1) finger-angle MSE (the wrist slots are zero on both sides)
+    angle_loss = torch.sum(
+        w_row * ((out.joint_angles[:, :20] - gt_joint_angles[:, :20]) ** 2).mean(dim=-1)
+    )
+
+    # 2) wrist rigid points in cam0.  Right-hand crop cameras are x-mirrored
+    # (det(e0) = -1), so the target uses the GT wrist with its x column
+    # mirrored: e0 @ mirror_x(gt) is then a proper rigid transform, and the
+    # model's decode chain applied to these targets reproduces
+    # gt_wrist_world exactly.
+    gt_wrist_cam0 = frame.extrinsics[:, 0] @ _x_mirrored(gt_wrist_world, frame.hand_idx)
+    gt_points = affine.transform3(gt_wrist_cam0[:, None], _rigid_points(model, gt_wrist_cam0))
+    pred_c = out.wrist_points.mean(dim=-2, keepdim=True)
+    gt_c = gt_points.mean(dim=-2, keepdim=True)
+    trans_mse = ((pred_c - gt_c) ** 2).mean(dim=(-2, -1))
+    rot_mse = (((out.wrist_points - pred_c) - (gt_points - gt_c)) ** 2).mean(dim=(-2, -1))
+    point_loss = torch.sum(w_row * (trans_mse + rot_gain * rot_mse))
+
+    # 3) landmark NLL with predicted angles + GT wrist (no SVD in the path);
+    # the 1e-12 keeps the norm's gradient finite at zero error
+    pred_lm = skin_landmarks(hand, out.joint_angles, gt_wrist_world)
+    gt_lm = skin_landmarks(hand, gt_joint_angles, gt_wrist_world)
+    err = torch.linalg.vector_norm(pred_lm - gt_lm + 1e-12, dim=-1)  # [B, 21]
+    # A 1 mm training-side sigma floor: once sigmas shrink to ~0.5 mm a
+    # domain shift makes (err / sigma)^2 explode; the decode is untouched.
+    sig = torch.clamp(out.landmark_uncertainty_sigmas, min=1e-3)
+    nll = torch.sum(w_row * (torch.log(sig) + 0.5 * (err / sig) ** 2).mean(dim=-1))
+    return angle_loss, point_loss, nll, count
+
+
+def _scale_loss(out_u, gt_scales: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Log-scale MSE over the valid rows."""
+    w_row = torch.ones_like(gt_scales) if valid is None else valid.to(gt_scales.dtype)
+    sq = (torch.log(out_u.skel_scales) - torch.log(gt_scales)) ** 2
+    return torch.sum(w_row * sq) / torch.clamp(w_row.sum(), min=1.0)
+
+
+def loss_fn(
+    model: UmeTrackNet, batch: TrainBatch, weights: LossWeights = LossWeights()
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-frame loss in train mode -> (total, metrics).  The running
+    stats keep the known-skeleton pass's update only."""
+    model.train()
+    b = batch.gt_joint_angles.shape[0]
+    state = TemporalState.zeros(b, model.config, device=batch.gt_joint_angles.device)
+    out, _ = model.known_skeleton(batch.frame, batch.skeleton, state)
+    angle_loss, point_loss, nll, count = _frame_losses(
+        model, out, batch.frame, batch.gt_joint_angles, batch.gt_wrist_world, batch.hand,
+        batch.valid, rot_gain=weights.wrist_rot_gain,
+    )
+    denom = torch.clamp(count, min=1.0)
+    angle_loss, point_loss, nll = angle_loss / denom, point_loss / denom, nll / denom
+    total = (weights.angles * angle_loss + weights.wrist_points * point_loss
+             + weights.landmark_nll * nll)
+
+    scale_loss = torch.zeros((), device=total.device)
+    if batch.gt_scales is not None:
+        with running_stats_kept(model):
+            out_u, _ = model.predict_scale(batch.frame, state)
+        scale_loss = _scale_loss(out_u, batch.gt_scales, batch.valid)
+        total = total + weights.scale * scale_loss
+
+    metrics = {
+        "loss": total, "angle_loss": angle_loss, "point_loss": point_loss,
+        "landmark_nll": nll, "scale_loss": scale_loss,
+    }
+    return total, {k: v.detach() for k, v in metrics.items()}
+
+
+def _second_diff(x: torch.Tensor) -> torch.Tensor:  # [K, ...] -> [K-2, ...]
+    return x[2:] + x[:-2] - 2.0 * x[1:-1]
+
+
+def _accel_loss(
+    model: UmeTrackNet,
+    batch: TemporalTrainBatch,
+    angles_t: torch.Tensor,  # [K, B, 22] predicted
+    points_t: torch.Tensor,  # [K, B, P, 3] predicted raw wrist points, cam0
+    valid_t: torch.Tensor,  # [K, B] bool
+) -> torch.Tensor:
+    """Squared error between the second differences (acceleration) of the
+    predicted and the GT world landmarks and wrist rigid points over the
+    window, masked to triples of consecutive valid frames.  Landmarks use
+    the GT wrist; wrist points go to world through the inverse of cam0,
+    whose 3x3 block is orthogonal (x-mirrored for right hands)."""
+    gt_angles_t = batch.gt_joint_angles.transpose(0, 1)
+    gt_wrist_t = batch.gt_wrist_world.transpose(0, 1)  # [K, B, 4, 4]
+    pred_lm = skin_landmarks(batch.hand, angles_t, gt_wrist_t)
+    gt_lm = skin_landmarks(batch.hand, gt_angles_t, gt_wrist_t)
+
+    e0_t = batch.frames.extrinsics[:, :, 0].transpose(0, 1)  # [K, B, 4, 4]
+    r0t = e0_t[..., :3, :3].transpose(-1, -2)
+    t0 = e0_t[..., :3, 3]
+
+    def to_world(pts):  # [K, B, P, 3] cam0 -> world
+        return torch.einsum("kbij,kbpj->kbpi", r0t, pts - t0[:, :, None, :])
+
+    hand_idx_t = batch.frames.hand_idx.transpose(0, 1)
+    gt_pts = affine.transform3(
+        (e0_t @ _x_mirrored(gt_wrist_t, hand_idx_t))[:, :, None], _rigid_points(model, e0_t)
+    )
+    valid3 = (valid_t[2:] & valid_t[:-2] & valid_t[1:-1]).to(torch.float32)  # [K-2, B]
+    n3 = torch.clamp(valid3.sum(), min=1.0)
+
+    def term(pred, gt):
+        d = _second_diff(pred) - _second_diff(gt)
+        return torch.sum(valid3 * (d * d).sum(dim=-1).mean(dim=-1)) / n3
+
+    return term(pred_lm, gt_lm) + term(to_world(points_t), to_world(gt_pts))
+
+
+def temporal_loss_fn(
+    model: UmeTrackNet, batch: TemporalTrainBatch, weights: LossWeights = LossWeights()
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """TBPTT loss in train mode -> (total, metrics): the model runs frame
+    by frame over the K-frame window threading the ``TemporalState``, so
+    gradients reach the memory pathway through real recurrence (with the
+    motion compensation active wherever ``frames.use_memory`` is set)."""
+    model.train()
+    b, k = batch.gt_joint_angles.shape[:2]
+    device = batch.gt_joint_angles.device
+    state0 = TemporalState.zeros(b, model.config, device=device)
+    valid_t = (
+        torch.ones((k, b), dtype=torch.bool, device=device)
+        if batch.valid is None else batch.valid.transpose(0, 1)
+    )
+
+    state = state0
+    per_step: List[torch.Tensor] = []
+    angles, points = [], []
+    for t in range(k):
+        frame = batch.frames.map(lambda a: a[:, t])
+        out, state = model.known_skeleton(frame, batch.skeleton, state)
+        per_step.append(torch.stack(_frame_losses(
+            model, out, frame, batch.gt_joint_angles[:, t], batch.gt_wrist_world[:, t],
+            batch.hand, valid_t[t], rot_gain=weights.wrist_rot_gain,
+        )))
+        angles.append(out.joint_angles)
+        points.append(out.wrist_points)
+    # rows are (sum, sum, sum, count): normalise over ALL valid (row, frame)
+    # supervision slots of the window
+    sums = torch.stack(per_step).sum(dim=0)
+    denom = torch.clamp(sums[3], min=1.0)
+    angle_loss, point_loss, nll = sums[0] / denom, sums[1] / denom, sums[2] / denom
+
+    accel_loss = torch.zeros((), device=device)
+    if k >= 3:
+        accel_loss = _accel_loss(model, batch, torch.stack(angles), torch.stack(points), valid_t)
+
+    total = (weights.angles * angle_loss + weights.wrist_points * point_loss
+             + weights.landmark_nll * nll + weights.accel * accel_loss)
+
+    # the scale head on the first frame (zero state, no memory); its
+    # running-stat update is kept
+    scale_loss = torch.zeros((), device=device)
+    if batch.gt_scales is not None:
+        out_u, _ = model.predict_scale(batch.frames.map(lambda a: a[:, 0]), state0)
+        scale_loss = _scale_loss(
+            out_u, batch.gt_scales, None if batch.valid is None else batch.valid[:, 0]
+        )
+        total = total + weights.scale * scale_loss
+    metrics = {
+        "loss": total, "angle_loss": angle_loss, "point_loss": point_loss,
+        "landmark_nll": nll, "scale_loss": scale_loss, "accel_loss": accel_loss,
+    }
+    return total, {key: v.detach() for key, v in metrics.items()}
+
+
+def _apply_grads(state: TrainState, total: torch.Tensor) -> None:
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    state.optimizer.step()
+    state.step += 1
+
+
+def train_step(
+    state: TrainState, batch: TrainBatch, weights: LossWeights = LossWeights()
+) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a single-frame batch; ``state`` is updated in
+    place.  Returns the metrics (device tensors: reading one waits for the
+    step)."""
+    total, metrics = loss_fn(state.model, batch, weights)
+    _apply_grads(state, total)
+    return metrics
+
+
+def temporal_train_step(
+    state: TrainState, batch: TemporalTrainBatch, weights: LossWeights = LossWeights()
+) -> Dict[str, torch.Tensor]:
+    """One TBPTT optimizer step over a K-frame window (see
+    :func:`train_step`)."""
+    total, metrics = temporal_loss_fn(state.model, batch, weights)
+    _apply_grads(state, total)
+    return metrics
+
+
+def synthetic_train_batch(rng_seed: int, batch: int, hand: HandModel, device=None) -> TrainBatch:
+    """A random but consistent batch on ``device`` (CUDA unless "cpu"),
+    drawn with numpy in the JAX package's order, so both packages make the
+    same batch from one seed.  ``hand`` is an unbatched left-hand model in
+    mm; it is scaled to meters and broadcast over the batch."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(rng_seed)
+    hand_m = scaled_hand_model(hand, 0.001).map(
+        lambda a: a.to(device).expand(batch, *a.shape)
+    )
+
+    q, _ = np.linalg.qr(rng.standard_normal((batch, 3, 3)))
+    q[..., :, 0] *= np.where(np.linalg.det(q) < 0, -1.0, 1.0)[:, None]
+    wrist = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
+    wrist[:, :3, :3] = q
+    wrist[:, :3, 3] = rng.standard_normal((batch, 3)) * 0.05
+
+    intr = np.tile(np.eye(3, dtype=np.float32), (batch, 2, 1, 1))
+    intr[..., 0, 0] = rng.uniform(150, 300, (batch, 2))
+    intr[..., 1, 1] = intr[..., 0, 0]
+    intr[..., 0, 2] = intr[..., 1, 2] = 47.5
+
+    qe, _ = np.linalg.qr(rng.standard_normal((batch * 2, 3, 3)))
+    qe[..., :, 0] *= np.where(np.linalg.det(qe) < 0, -1.0, 1.0)[:, None]
+    extr = np.tile(np.eye(4, dtype=np.float32), (batch * 2, 1, 1))
+    extr[:, :3, :3] = qe
+    extr[:, :3, 3] = rng.standard_normal((batch * 2, 3)) * 0.3
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    frame = FrameInputs(
+        images=t(rng.uniform(0, 1, (batch, 2, 96, 96))),
+        intrinsics=t(intr),
+        extrinsics=t(extr.reshape(batch, 2, 4, 4)),
+        n_views=torch.full((batch,), 2, dtype=torch.int32, device=device),
+        hand_idx=t(rng.integers(0, 2, batch), torch.int32),
+        use_memory=torch.zeros((batch,), dtype=torch.bool, device=device),
+    )
+    return TrainBatch(
+        frame=frame,
+        skeleton=SkeletonInputs(
+            joint_rotation_axes=hand_m.joint_rotation_axes,
+            joint_rest_positions=hand_m.joint_rest_positions,
+        ),
+        gt_joint_angles=t(rng.uniform(-0.5, 0.5, (batch, 22))),
+        gt_wrist_world=t(wrist),
+        hand=hand_m,
+        gt_scales=t(rng.uniform(0.8, 1.2, batch)),
+    )

@@ -137,19 +137,23 @@ def make_gt_motion(rng, t, hand_dict, mode: str = "separate"):
     return angles, wrists, conf
 
 
-def smooth_images(rng, t, n=N_CAMS, h=480, w=640, lo=40, hi=220, device="cpu"):
-    """Smooth noise images, uint8 [T, N, H, W]: a 15 x 20 grid of uniform
-    values per image, upsampled bicubically."""
+def smooth_images(rng, t, n=N_CAMS, h=480, w=640, lo=40, hi=220, device=None):
+    """Smooth noise images, uint8 [T, N, H, W] on ``device`` (CUDA unless
+    "cpu"): a 15 x 20 grid of uniform values per image, upsampled
+    bicubically."""
     base = rng.uniform(lo, hi, size=(t * n, 1, 15, 20)).astype(np.float32)
     img = F.interpolate(
-        torch.from_numpy(base).to(device), size=(h, w), mode="bicubic", align_corners=False
+        torch.from_numpy(base).to(resolve_device(device)), size=(h, w), mode="bicubic",
+        align_corners=False,
     )
     return img.clamp(0, 255).to(torch.uint8).reshape(t, n, h, w)
 
 
-def our_sequence(labels: dict, images, device="cpu"):
-    """Rig, observation (leading T axis) and hand model from a label dict in
-    the raw_data JSON schema plus its images [T, N, H, W]."""
+def our_sequence(labels: dict, images, device=None):
+    """Rig, observation (leading T axis) and hand model on ``device`` (CUDA
+    unless "cpu") from a label dict in the raw_data JSON schema plus its
+    images [T, N, H, W]."""
+    device = resolve_device(device)
 
     def f32(key):
         return torch.tensor(np.asarray(labels[key], np.float32), device=device)
@@ -318,7 +322,7 @@ def render_fisheye_sequence(
             landmarks_world, cam_poses, cam_jss, bg, rng,
             radius_scale=radius_scale, device=device,
         )
-    images = smooth_images(rng, t, n=n, h=h, w=w, lo=25, hi=95).numpy()
+    images = smooth_images(rng, t, n=n, h=h, w=w, lo=25, hi=95, device="cpu").numpy()
     world_to_cam = np.stack([np.linalg.inv(p) for p in cam_poses])
     for ti in range(t):
         for c in range(n):
@@ -495,7 +499,7 @@ def make_torchdata_sample(rng_seed=0, t=3, v=2, h=120, w=160, hand_idx=1, hand_s
             radius_scale=1.0 if hand_scale is None else hand_scale, device=device,
         )
     else:
-        mono = smooth_images(rng, t, n=v, h=h, w=w).numpy()
+        mono = smooth_images(rng, t, n=v, h=h, w=w, device="cpu").numpy()
 
     labels = {
         "extrinsics": extr.tolist(),
