@@ -8,7 +8,8 @@ exits non-zero without a result line:
 
 1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of ``umetrack_torch/csrc/warp_pool.cu`` and ``warp_image.cu``
-   with their shared header (both ``nvcc`` runs started together,
+   with their shared header, and of the native idx/bin reader
+   ``umetrack_io.cpp`` (the ``nvcc`` and ``g++`` runs started together,
    ``-Xptxas -v`` condensed to a line per kernel) and its time;
 3. the image-pool warp kernel against its plain PyTorch version on the card,
    at the tracker's bench shape (64 sequences x 16 frames: 4096 pool images
@@ -32,8 +33,10 @@ exits non-zero without a result line:
    times as in phase 3, byte bounds, and the tiled kernel's staged form
    against its unstaged form on the same data;
 6. the torch_data inference app ``run`` over a synthetic on-disk tree (32
-   sequences x 16 frames x 2 views of 480 x 640) at full width: one
-   windowed-kernel launch per batch, finite error, sequences/s and frames/s,
+   sequences x 16 frames x 2 views of 480 x 640, the hand rendered) at full
+   width: one windowed-kernel launch per batch, finite error, sequences/s
+   and frames/s with the native idx/bin reader (checked to be the one
+   taken) and in turns with the Python reader, the label decode both ways,
    where a batch's time goes, one batch under torch.profiler; then a
    120 x 160 tree (one full-kernel launch per batch);
 7. card against CPU, TF32 off: the tracker at S=2, T=4 (1e-3 rad, 0.1 mm),
@@ -62,7 +65,18 @@ exits non-zero without a result line:
    ones, for the reason given at ``TRAINED`` below; on the same crops the
    checkpoint too is held to the strict bounds.  The pool kernel's counter
    is set to 0 just before each entry-point call and read just after it;
-9. the training path at the full width of ``ModelConfig()`` (f32): one
+9. the batched and sharded evaluation (``parallel/eval.py``) at S=64 x
+   T=16, full width, f32, with seeded weights and with the checkpoint:
+   ``eval_sequences_batched`` (one ``warp_pool`` launch a call) and
+   ``eval_sequences_unknown_batched`` (two) against per-sequence tracking
+   and calibration of the first ``CALIBRATE_CHECKED`` sequences (the
+   strict bounds for seeded weights, ``TRAINED`` for the checkpoint), their
+   wall ms per call, frames/s and peak memory; then a process group of one
+   rank over NCCL: the sharded eval equals the unsharded one bit for bit,
+   ``train_step`` and ``temporal_train_step`` with the synchronised
+   BatchNorm equal the same steps without a group, and the group is left
+   (one card: no multi-GPU number);
+10. the training path at the full width of ``ModelConfig()`` (f32): one
    ``train_step`` and one ``temporal_train_step`` (K=4) on the card against
    the CPU at the CPU tests' small config and bounds (loss, metrics, every
    gradient leaf, the BatchNorm running stats after the step, TF32 off);
@@ -76,7 +90,7 @@ exits non-zero without a result line:
    reloads to the same forward) and on a 480 x 640 training tree (one
    ``warp_image_windowed`` launch a batch); ``run_distillation`` with the
    checkpoint as a ``.torch`` teacher (finite gaps and metric set);
-10. a ``{"kernels": [...]}`` line, then the last line
+11. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the repository around it; without either it exits
@@ -211,20 +225,25 @@ def phase_device():
 
 
 def phase_build():
-    """Both sources at once (one nvcc each), then both libraries loaded."""
+    """Both CUDA sources and the native reader's C++ source at once (one
+    nvcc or g++ each), then the libraries loaded."""
     import importlib
     from concurrent.futures import ThreadPoolExecutor
 
+    from umetrack_torch.data import native
     from umetrack_torch.ops import _build
 
     wp_mod = importlib.import_module("umetrack_torch.ops.warp_pool")
     wi_mod = importlib.import_module("umetrack_torch.ops.warp_image")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        io_path = pool.submit(_build.build_host, native.NAME)
         paths = list(pool.map(lambda name: _build.build(name, verbose=True),
                               (wp_mod.NAME, wi_mod.NAME)))
+        paths.append(io_path.result())
     wp_mod._library()
     wi_mod._library()
+    native.load_library()
     log(f"[build] {', '.join(os.path.relpath(p, HERE) for p in paths)} "
         f"in {time.perf_counter() - t0:.2f} s")
     return wp_mod, wi_mod
@@ -606,13 +625,14 @@ def time_forms(wi_mod, images, coords, label, card, rounds=3):
 
 
 def torchdata_batch(n_seqs, t, h, w, seed0=0):
-    """Parsed host sequences of the synthetic torch_data kind."""
+    """Parsed host sequences of the synthetic torch_data kind, the hand
+    rendered on the card (as the corpora of phases 6 and 9 are)."""
     from umetrack_torch.data.transform import parse_raw_buffers
     from umetrack_torch.utils.synthetic import make_torchdata_sample
 
     return [
         parse_raw_buffers(*make_torchdata_sample(
-            rng_seed=seed0 + i, t=t, v=TD_V, h=h, w=w, hand_idx=i % 2))
+            rng_seed=seed0 + i, t=t, v=TD_V, h=h, w=w, hand_idx=i % 2, render=True, device="cuda"))
         for i in range(n_seqs)
     ]
 
@@ -842,6 +862,37 @@ def launches(wp_mod, wi_mod):
             wi_mod.warp_image_windowed.launches)
 
 
+class ReaderLog:
+    """Which reader ``FolderDataset`` took for each folder opened inside
+    the block (``taken``: the distinct readers, from its log lines)."""
+
+    def __enter__(self):
+        import logging
+
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith("reading ") and " with the " in msg:
+                    outer.readers.append(msg.rsplit(" with the ", 1)[1].split()[0])
+
+        self.readers, self.handler = [], Handler()
+        self.logger = logging.getLogger("umetrack_torch.data.dataset")
+        self.saved_level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.saved_level)
+
+    @property
+    def taken(self):
+        return sorted(set(self.readers))
+
+
 def batch_breakdown(model, root, card):
     """Where one batch's time goes, stage by stage on the host clock with a
     synchronise after each (the app itself overlaps read + parse with the
@@ -850,18 +901,25 @@ def batch_breakdown(model, root, card):
     import torch
     from umetrack_torch.apps import run_inference_torch_data as app
     from umetrack_torch.data import IdxBinFile, bundles, find_torchdata_folders
+    from umetrack_torch.data.native import NativeIdxBin
     from umetrack_torch.data.transform import (
         crop_homographies, parse_raw_buffers, preprocess_sequence)
     from umetrack_torch.ops.resample import bilinear_sample, homography_coords
 
     folder = find_torchdata_folders(root, ["mono", "labels"])[0]
     files = {f: IdxBinFile.open(os.path.join(folder, f + ".torch.idx")) for f in ("mono", "labels")}
+    native_labels = NativeIdxBin(os.path.join(folder, "labels.torch.idx"))
     t0 = time.perf_counter()
     monos = [files["mono"][i] for i in range(TD_BATCH)]  # zero-copy views of the mmap
     t_mono = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     labels = [files["labels"][i] for i in range(TD_BATCH)]  # msgpack decode
     t_labels = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    labels_native = [native_labels[i] for i in range(TD_BATCH)]
+    t_labels_native = (time.perf_counter() - t0) * 1e3
+    check(labels_native == labels, "the native reader's labels differ from the Python reader's")
+    native_labels.close()
     label_kb = sum(len(files["labels"].frame_bytes(i)) for i in range(TD_BATCH)) / 1e3
     t0 = time.perf_counter()
     raws = [parse_raw_buffers(m, l) for m, l in zip(monos, labels)]
@@ -889,7 +947,8 @@ def batch_breakdown(model, root, card):
     check(bool(torch.isfinite(err).all()), "non-finite error in the breakdown batch")
     mb = sum(np.asarray(r.images).nbytes for r in raws) / 1e6
     log(f"[torch_data] one batch of {TD_BATCH} x {TD_T} x {TD_V} frames ({mb:.1f} MB uint8), by stage: "
-        f"mono views {t_mono:.1f} ms, label decode (msgpack, {label_kb:.0f} KB) {t_labels:.1f} ms, "
+        f"mono views {t_mono:.1f} ms, label decode (msgpack, {label_kb:.0f} KB) {t_labels:.1f} ms with "
+        f"the Python reader, {t_labels_native:.1f} ms with the native reader, "
         f"parse to numpy {t_parse:.1f} ms, collate {t_collate:.1f} ms, "
         f"upload {t_upload:.1f} ms, preprocess {t_pre:.1f} ms (geometry {t_geom:.1f} ms, "
         f"warp kernel {t_warp:.4f} ms), model loop + error {t_model:.1f} ms [{card}]")
@@ -908,29 +967,42 @@ def phase_torchdata_slice(wp_mod, wi_mod, model, card):
     with tempfile.TemporaryDirectory(prefix="umetrack_torch_data_") as root:
         big, small = os.path.join(root, "big"), os.path.join(root, "small")
         t0 = time.perf_counter()
-        write_torchdata_corpus(big, n_test=TD_SEQS, t=TD_T, v=TD_V, h=TD_H, w=TD_W)
-        write_torchdata_corpus(small, n_test=TD_SEQS, t=TD_T, v=TD_V, h=120, w=160)
+        for root_, h, w in ((big, TD_H, TD_W), (small, 120, 160)):
+            write_torchdata_corpus(root_, n_train=0, n_test=TD_SEQS, t=TD_T, v=TD_V, h=h, w=w,
+                                   device="cuda")
         log(f"[torch_data] wrote 2 x {TD_SEQS} sequences x {TD_T} frames x {TD_V} views "
-            f"({TD_H} x {TD_W} and 120 x 160) in {time.perf_counter() - t0:.1f} s")
+            f"({TD_H} x {TD_W} and 120 x 160, the hand rendered on the card) in "
+            f"{time.perf_counter() - t0:.1f} s")
 
         # the main path: counts to 0, the app's run, counts read
         torch.cuda.reset_peak_memory_stats()
         reset_launches(wp_mod, wi_mod)
-        first_ms, res = wall_ms(lambda: app.run([big], model, batch_size=TD_BATCH))
+        with ReaderLog() as readers:
+            first_ms, res = wall_ms(lambda: app.run([big], model, batch_size=TD_BATCH))
         counts = launches(wp_mod, wi_mod)
+        check(readers.taken == ["native"], f"the app read its folders with the {readers.taken} reader(s)")
         check(set(res) == {Split.TEST} and math.isfinite(res[Split.TEST]),
               f"run over the {TD_H} x {TD_W} tree: {res}")
         check(counts == (0, 0, n_batches),
               f"{TD_H} x {TD_W} tree: launches (pool, full, windowed) {counts} in {n_batches} batches")
-        walls = [wall_ms(lambda: app.run([big], model, batch_size=TD_BATCH))[0] for _ in range(3)]
-        med = sorted(walls)[1]
+        walls = {}
+        for reader, flag in (("native", "1"), ("Python", "0")) * 3:
+            os.environ["UMETRACK_NATIVE_IO"] = flag
+            with ReaderLog() as readers:
+                walls.setdefault(reader, []).append(
+                    wall_ms(lambda: app.run([big], model, batch_size=TD_BATCH))[0])
+            check(readers.taken == [reader], f"UMETRACK_NATIVE_IO={flag}: {readers.taken}")
+        os.environ.pop("UMETRACK_NATIVE_IO")
+        med = sorted(walls["native"])[1]
         log(f"[torch_data] run() over {TD_SEQS} sequences, {TD_H} x {TD_W}, batch {TD_BATCH}, full "
-            f"ModelConfig() f32: {med:.1f} ms/run median of 3 ({', '.join(f'{w:.1f}' for w in walls)}; "
-            f"first run {first_ms:.1f} ms), {med / n_batches:.1f} ms/batch, "
-            f"{TD_SEQS / med * 1e3:.1f} sequences/s, {TD_SEQS * TD_T / med * 1e3:.1f} frames/s, "
-            f"one warp_image_windowed launch per batch, mean error {res[Split.TEST]:.1f} mm "
-            f"(random weights: finite, no more), peak mem "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+            f"ModelConfig() f32, native reader: {med:.1f} ms/run median of 3 "
+            f"({', '.join(f'{w:.1f}' for w in walls['native'])}; first run {first_ms:.1f} ms), "
+            f"{med / n_batches:.1f} ms/batch, {TD_SEQS / med * 1e3:.1f} sequences/s, "
+            f"{TD_SEQS * TD_T / med * 1e3:.1f} frames/s, one warp_image_windowed launch per batch, mean "
+            f"error {res[Split.TEST]:.1f} mm (random weights: finite, no more), peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; Python reader "
+            f"(UMETRACK_NATIVE_IO=0, in turns with the native one): "
+            f"{', '.join(f'{w:.1f}' for w in walls['Python'])} ms/run [{card}]")
 
         raws = batch_breakdown(model, big, card)
         phase_profile(lambda: app._run_batch(model, raws), "one torch_data batch (_run_batch)",
@@ -1473,6 +1545,165 @@ def phase_eval_cpu_vs_card(models):
                 f"{ds:.3e} (<= {bounds.scale})")
 
 
+# ---- batched and sharded evaluation ------------------------------------------
+
+
+def sequence_error_mm(lm_hand, hand, res, seq):
+    """A tracked sequence's mean landmark error (mm) over its valid (frame,
+    hand) slots, as ``eval_sequences_batched`` computes it per sequence:
+    the tracked landmarks skinned with ``lm_hand``, GT with ``hand``."""
+    import torch
+    from umetrack_torch.tracker import sequence_landmarks
+
+    tracked = sequence_landmarks(lm_hand, res.joint_angles, res.wrist_xfs)
+    gt = sequence_landmarks(hand, seq.gt_joint_angles, seq.gt_wrist_xfs)
+    err = torch.linalg.vector_norm(tracked - gt, dim=-1).mean(dim=-1)
+    v = res.valid.to(err.dtype)
+    return float((err * v).sum() / torch.clamp(v.sum(), min=1.0))
+
+
+def phase_batched_eval(models, tally, rigs, seqs, hands, card):
+    """``eval_sequences_batched`` (one ``warp_pool`` launch) and
+    ``eval_sequences_unknown_batched`` (two: the calibration, the retrack)
+    at S=64 x T=16 for each of ``models`` (name, model, bounds): their
+    per-sequence errors and scales against per-sequence tracking of the
+    first ``CALIBRATE_CHECKED`` sequences (TF32 off), then wall ms per call
+    (median of 3 warmed calls), frames/s and peak memory.  Returns the
+    seeded model's known-skeleton results."""
+    import torch
+    from umetrack_torch.kinematics.hand import from_dict, load_generic_hand_dict, scaled_hand_model
+    from umetrack_torch.parallel.eval import (
+        eval_sequences_batched, eval_sequences_unknown_batched, make_batched_state)
+    from umetrack_torch.tracker import HandTracker
+    from umetrack_torch.tracker.tracker import track_sequences_batched
+
+    s, t = seqs.gt_confidences.shape[:2]
+    generic = from_dict(load_generic_hand_dict(), device="cuda")
+    first = None
+    for name, model, bounds in models:
+        tracker = HandTracker(model, device="cuda")
+        config = tracker.config
+        known = lambda: eval_sequences_batched(
+            model, config, rigs, seqs, make_batched_state(model, s), hands)
+        unknown = lambda: eval_sequences_unknown_batched(model, config, rigs, seqs, hands, generic)
+        with tf32_off():
+            per_seq, n_valid, mean = tally(known, 1, "eval_sequences_batched")
+            per_u, n_valid_u, mean_u, scales = tally(unknown, 2, "eval_sequences_unknown_batched")
+            batched, _ = track_sequences_batched(model, config, rigs, seqs, make_batched_state(model, s), hands)
+            gaps = [0.0] * 4  # rad, known mm, unknown mm, scale
+            for i in range(CALIBRATE_CHECKED):
+                rig, seq, hand = (tr.map(lambda a: a[i]) for tr in (rigs, seqs, hands))
+                res, _ = tracker.track_sequence(rig, seq, hand)
+                check(bool((res.valid == batched.valid[:, i]).all()), f"{name}: sequence {i}: valid masks")
+                v = res.valid
+                gaps[0] = max(gaps[0], float((res.joint_angles[v] - batched.joint_angles[:, i][v]).abs().max()))
+                gaps[1] = max(gaps[1], abs(sequence_error_mm(hand, hand, res, seq) - float(per_seq[i])))
+                calibrated = scaled_hand_model(generic, scales[i])
+                res_u, _ = tracker.track_sequence(rig, seq, hand, skel_hand_model_mm=calibrated)
+                err_u = sequence_error_mm(calibrated, hand, res_u, seq)
+                gaps[2] = max(gaps[2], abs(err_u - float(per_u[i])))
+                gaps[3] = max(gaps[3], abs(float(tracker.calibrate_sequence(rig, seq, hand)) - float(scales[i])))
+        check(per_seq.shape == n_valid.shape == per_u.shape == scales.shape == (s,), "result shapes")
+        check(bool(torch.isfinite(per_seq).all() & torch.isfinite(per_u).all() & (n_valid > 0).all()),
+              f"{name}: non-finite errors or a sequence without a valid slot")
+        check(bool(torch.equal(n_valid, n_valid_u)), f"{name}: valid slots differ between the protocols")
+        check(gaps[0] <= bounds.angle and max(gaps[1], gaps[2]) <= bounds.mm and gaps[3] <= bounds.scale,
+              f"{name}: batched against per-sequence: {gaps}")
+        times = {}
+        torch.cuda.reset_peak_memory_stats()
+        for label, fn in (("known", known), ("unknown", unknown)):
+            fn()
+            times[label] = sorted(wall_ms(fn)[0] for _ in range(3))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[batched-eval] {name}: eval_sequences_batched S={s} T={t} full ModelConfig() f32: one "
+            f"warp_pool launch, global mean {float(mean):.2f} mm, {int((n_valid > 0).sum())}/{s} sequences "
+            f"with a valid slot; eval_sequences_unknown_batched: two launches, scales "
+            f"{float(scales.min()):.4f}..{float(scales.max()):.4f}, global mean {float(mean_u):.2f} mm; "
+            f"the first {CALIBRATE_CHECKED} sequences tracked alone (TF32 off): angles {gaps[0]:.3e} rad "
+            f"(<= {bounds.angle}), per-sequence error {gaps[1]:.3e} mm known, {gaps[2]:.3e} mm unknown "
+            f"(<= {bounds.mm}), scales {gaps[3]:.3e} (<= {bounds.scale}) [{card}]")
+        for label, ms in times.items():
+            log(f"[batched-eval] {name}, {label} skeleton: {ms[1]:.1f} ms/call median of 3 "
+                f"({', '.join(f'{m:.1f}' for m in ms)}), {s * t / ms[1] * 1e3:.1f} frames/s; peak mem of "
+                f"both {peak:.2f} GiB [{card}]")
+        if first is None:
+            first = (per_seq, n_valid, mean)
+    return first
+
+
+def phase_process_group(model, tally, rigs, seqs, hands, unsharded, card):
+    """A process group of one rank over NCCL (a localhost TCP store): the
+    sharded eval equals the unsharded one bit for bit; one ``train_step``
+    and one ``temporal_train_step`` with the synchronised BatchNorm branch
+    equal the same steps without a group at tests/test_torch_train.py's
+    bounds (TF32 off); then the group is left.  One card: no multi-GPU
+    number is measured."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.parallel import ClippedAdamW, create_train_state, distributed
+    from umetrack_torch.parallel import make_mesh, shard_variables, temporal_train_step, train_step
+    from umetrack_torch.parallel.eval import eval_sequences_batched, make_batched_state, shard_eval_inputs
+    from umetrack_torch.tracker import TrackerConfig
+
+    frame, window = small_train_batches("cuda")
+    steps = (("train_step", train_step, frame), (f"temporal_train_step K={TRAIN_K}", temporal_train_step, window))
+
+    def run_steps():
+        out = {}
+        with tf32_off():
+            for label, step_fn, batch in steps:
+                m = make_model(ModelConfig(**TRAIN_SMALL), seed=0, device="cuda")
+                shard_variables(m, make_mesh())
+                state = create_train_state(m, ClippedAdamW(m.parameters(), 1e-3, 1e-5))
+                metrics = step_fn(state, batch)
+                out[label] = ({k: float(v) for k, v in metrics.items()},
+                              {n: p.grad.cpu() for n, p in m.named_parameters()},
+                              {n: b.cpu() for n, b in m.named_buffers() if "running" in n})
+        return out
+
+    alone = run_steps()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    check(distributed.initialize(f"localhost:{port}", 1, 0) == (0, 1), "initialize")
+    try:
+        init_s = time.perf_counter() - t0
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        s = rigs.fx.shape[0]
+        with tf32_off():
+            sharded = tally(lambda: eval_sequences_batched(
+                model, TrackerConfig(), *shard_eval_inputs(0, 1, rigs, seqs, make_batched_state(model, s),
+                                                           hands)), 1, "sharded eval_sequences_batched")
+        for a, b, what in zip(sharded, unsharded, ("per-sequence errors", "valid slots", "global mean")):
+            check(bool(torch.equal(a, b)), f"sharded eval: {what} differ")
+        grouped = run_steps()
+    finally:
+        distributed.finalize()
+    check(not dist.is_initialized(), "the process group is still up")
+    log(f"[process-group] one rank over NCCL (tcp://localhost store joined in {init_s:.2f} s; the "
+        f"communicator is made at the first collective): the sharded "
+        f"eval_sequences_batched S={s} equals the unsharded call bit for bit (one warp_pool launch) [{card}]")
+    for label, *_ in steps:
+        (m_g, g_g, s_g), (m_a, g_a, s_a) = grouped[label], alone[label]
+        check(all(abs(m_g[k] - m_a[k]) <= LOSS_RTOL * abs(m_a[k]) + 1e-7 for k in m_a),
+              f"{label}: metrics {m_g} against {m_a}")
+        d_metric = max(abs(m_g[k] - m_a[k]) / abs(m_a[k]) for k in m_a if m_a[k])
+        ordinary, first, noise = grad_gaps(g_g, g_a)
+        d_stats = max(float(((s_g[k] - s_a[k]).abs() / (1 + s_a[k].abs())).max()) for k in s_a)
+        check(d_stats <= STATS_TOL, f"{label}: running stats differ by {d_stats}")
+        log(f"[process-group] {label}, small config (B={TRAIN_B}), synchronised BatchNorm against no group, "
+            f"TF32 off: metrics within {d_metric:.3e} relative (<= {LOSS_RTOL}); gradient leaves within "
+            f"{ordinary:.3e} relative L2 (<= {GRAD_REL_L2}), the first layers {first:.3e} "
+            f"(<= {FIRST_LAYERS_REL_L2}), zero-gradient biases {noise:.3e} (<= {ZERO_GRAD_NOISE}); "
+            f"running stats within {d_stats:.3e} (<= {STATS_TOL})")
+    log(f"[process-group] the machine has {torch.cuda.device_count()} card(s): world size 1 only, no "
+        f"multi-GPU number is measured [{card}]")
+
+
 # ---- the training slice ------------------------------------------------------
 
 
@@ -1680,7 +1911,8 @@ def phase_train_app(wp_mod, wi_mod, card):
 
         root = os.path.join(tmp, "tree")
         t0 = time.perf_counter()
-        write_torchdata_corpus(root, n_train=TREE_SEQS, n_test=0, t=8, v=TD_V, h=TD_H, w=TD_W)
+        write_torchdata_corpus(root, n_train=TREE_SEQS, n_test=0, t=8, v=TD_V, h=TD_H, w=TD_W,
+                               device="cuda")
         write_s = time.perf_counter() - t0
         tree_steps = TREE_SEQS // TREE_BATCH
         reset_launches(wp_mod, wi_mod)
@@ -1731,8 +1963,8 @@ def phase_train_kernels(wp_mod, wi_mod, card):
                           **time_image_kernels(wi_mod, images, coords, label, card)[name])
         del images, coords
 
-    items = [dict(zip(("mono", "labels"), make_torchdata_sample(rng_seed=i, t=8, hand_idx=i % 2)))
-             for i in range(32)]
+    items = [dict(zip(("mono", "labels"), make_torchdata_sample(
+        rng_seed=i, t=8, hand_idx=i % 2, render=True, device="cuda"))) for i in range(32)]
     model = init_train_model(ModelConfig(), seed=0, device="cuda")
     state = create_train_state(model, ClippedAdamW(model.parameters(), 1e-4, 1e-5))
     step = lambda: temporal_train_step(state, app._batch_from_sequences(items, (96, 96), 8, device="cuda"))
@@ -1839,7 +2071,14 @@ def main():
     eval_shapes = phase_streaming(wp_mod, models, tally, card)
     rigs, seqs, hands = make_sequences(S_BENCH, T_BENCH, seed=0, device="cuda")
     phase_unknown(models, tally, rigs, seqs, hands, card)
-    del rigs, seqs, hands
+
+    # the batched and sharded evaluation, each entry-point call counted from 0
+    batch_tally = LaunchTally(wp_mod.warp_pool)
+    unsharded = phase_batched_eval(models, batch_tally, rigs, seqs, hands, card)
+    phase_process_group(model_cuda, batch_tally, rigs, seqs, hands, unsharded, card)
+    log(f"[batched-eval] warp_pool launches over the batched evaluation's entry-point calls: "
+        f"{batch_tally.total}")
+    del rigs, seqs, hands, unsharded
     torch.cuda.empty_cache()
     phase_eval_apps(models, tally, card)
     log(f"[eval] warp_pool launches over the evaluation path's entry-point calls: {tally.total}")
@@ -1866,6 +2105,7 @@ def main():
         kernel_entry("warp_pool", "umetrack_torch/csrc/warp_pool.cu",
                      "umetrack_tpu/ops/pallas_resample.py:243",
                      {"tracker": pool_launches, "raw_data eval": tally.total,
+                      "batched eval": batch_tally.total,
                       "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool},
                      pool_kern, eval_shapes + [train_rows["warp_pool"]]),
         kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",

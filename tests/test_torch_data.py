@@ -114,8 +114,8 @@ def test_idxbin_files_are_byte_identical(tmp_path, label_dict):
 def tree(tmp_path_factory):
     """7 testing and 3 training sequences in two folders per split."""
     root = tmp_path_factory.mktemp("torch_data")
-    write_torchdata_corpus(str(root / "a"), n_train=3, n_test=4, t=2, seed0=0)
-    write_torchdata_corpus(str(root / "b"), n_train=0, n_test=3, t=2, seed0=100)
+    write_torchdata_corpus(str(root / "a"), n_train=3, n_test=4, t=2, seed0=0, device="cpu")
+    write_torchdata_corpus(str(root / "b"), n_train=0, n_test=3, t=2, seed0=100, device="cpu")
     (root / "a" / "stray").mkdir()
     return str(root)
 

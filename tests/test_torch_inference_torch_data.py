@@ -94,7 +94,7 @@ def test_pad_raw_np_edge_semantics():
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_data")
-    write_torchdata_corpus(str(root), n_train=1, n_test=5, t=3)
+    write_torchdata_corpus(str(root), n_train=1, n_test=5, t=3, device="cpu")
     return str(root)
 
 

@@ -29,6 +29,7 @@ NEW_MODULES = (
     "utils/profiling.py", "utils/render.py", "tracker/video.py",
     "config.py", "parallel/train.py", "parallel/optim.py", "parallel/resident.py",
     "apps/train.py", "apps/distill.py",
+    "parallel/eval.py", "parallel/distributed.py", "parallel/mesh.py", "data/native.py",
 )
 
 

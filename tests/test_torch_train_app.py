@@ -71,7 +71,7 @@ def test_a_jax_written_config_loads(tmp_path, caplog):
     ({"tracker": {"sampler": "gather2d"}}, ValueError),
     ({"train": {"learning_rte": 1.0}}, KeyError),
     ({"trainer": {}}, KeyError),
-    ({"mesh": {"world_size": 2}}, NotImplementedError),
+    ({"mesh": {"model_axis": 0}}, NotImplementedError),
     ({"mesh": {"model_axis": 2}}, NotImplementedError),
 ])
 def test_config_rejects_what_it_cannot_run(bad, error):
@@ -228,7 +228,7 @@ def test_a_port_trained_checkpoint_runs_in_the_jax_package(trained):
 
 @pytest.mark.parametrize("window", [1, 2])
 def test_dataset_batches_on_an_idxbin_tree(tmp_path, window):
-    write_torchdata_corpus(str(tmp_path), n_train=3, n_test=0, t=2)
+    write_torchdata_corpus(str(tmp_path), n_train=3, n_test=0, t=2, device="cpu")
     cfg = config.Config(
         data=config.DataConfig(data_roots=(str(tmp_path),), num_io_threads=2),
         train=config.TrainConfig(batch_size=3, tbptt_window=window),

@@ -1,9 +1,11 @@
 """Shared CLI plumbing for the port's apps: every entry point takes the
 same runtime flags.
 
-Counterpart of ``umetrack_tpu/apps/common.py``.  Multi-process runs are
-sharded by ``--rank`` / ``--world-size`` alone; the JAX package's
-``jax.distributed`` flags have no counterpart yet.
+Counterpart of ``umetrack_tpu/apps/common.py``.  A multi-process run
+either joins a ``torch.distributed`` process group (``--coordinator
+host:port --num-processes N --process-id i``, the JAX package's
+``jax.distributed`` flags) and shards by its rank, or shards by
+``--rank`` / ``--world-size`` alone.
 """
 from __future__ import annotations
 
@@ -34,12 +36,41 @@ def add_runtime_flags(
         "--device", default=None,
         help="'cuda[:i]' (the default; raises without a GPU) or 'cpu'",
     )
+    add_distributed_flags(parser)
     parser.add_argument("--rank", type=int, default=0)
     parser.add_argument("--world-size", type=int, default=1)
 
 
+def add_distributed_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--coordinator", default=None,
+        help="host:port of the torch.distributed store (served by process 0); when "
+        "set the app joins the process group and shards by its rank, overriding "
+        "--rank/--world-size",
+    )
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+
+
+def join_process_group(args) -> Optional[Tuple[int, int]]:
+    """Join the process group that ``--coordinator`` / ``--num-processes``
+    describe: (rank, world size), or None when they describe none."""
+    from ..parallel import distributed
+
+    if not (args.coordinator or (args.num_processes and args.num_processes > 1)):
+        return None
+    return distributed.initialize(
+        args.coordinator, args.num_processes, args.process_id,
+        device=getattr(args, "device", None),
+    )
+
+
 def setup_runtime(args) -> Tuple[int, int]:
-    """(rank, world_size) for sequence sharding."""
+    """(rank, world_size) for sequence sharding: the process group's when
+    the flags describe one, else ``--rank`` / ``--world-size``."""
+    joined = join_process_group(args)
+    if joined:
+        return joined
     if not 0 <= args.rank < args.world_size:
         raise ValueError(f"rank {args.rank} outside world size {args.world_size}")
     return args.rank, args.world_size

@@ -54,13 +54,14 @@ def build_teacher(checkpoint: Optional[str], config: Optional[ModelConfig] = Non
     return teacher.to(resolve_device(device)).eval()
 
 
-def _raw_frames(batch_size: int, seed: int) -> RawSequence:
+def _raw_frames(batch_size: int, seed: int, device=None) -> RawSequence:
     """One batch of single-frame synthetic torch_data samples (120 x 160
-    frames, on the host)."""
+    frames with the hand rendered on ``device``, collated on the host)."""
     from ..utils.synthetic import make_torchdata_sample
 
     return bundles.collate([
-        parse_raw_buffers(*make_torchdata_sample(rng_seed=seed + i, t=1, hand_idx=(seed + i) % 2))
+        parse_raw_buffers(*make_torchdata_sample(
+            rng_seed=seed + i, t=1, hand_idx=(seed + i) % 2, render=True, device=device))
         for i in range(batch_size)
     ])
 
@@ -160,11 +161,12 @@ def run_distillation(
         student, ClippedAdamW(student.parameters(), learning_rate, 1e-5, max_grad_norm=None)
     )
     weights = LossWeights()
-    heldout = _teacher_batch(teacher, _raw_frames(16, seed=10_000))
+    heldout = _teacher_batch(teacher, _raw_frames(16, seed=10_000, device=device))
 
     gaps = []
     for step in range(steps):
-        batch = _teacher_batch(teacher, _raw_frames(batch_size, seed=seed + step * batch_size))
+        batch = _teacher_batch(
+            teacher, _raw_frames(batch_size, seed=seed + step * batch_size, device=device))
         metrics = train_step(state, batch, weights)
         if step % eval_every == 0 or step == steps - 1:
             gap = float(_distill_gap_mm(student, heldout))

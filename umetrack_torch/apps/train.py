@@ -5,7 +5,10 @@ Counterpart of ``umetrack_tpu/apps/train.py``.  The host loader parses the
 idx/bin bytes; the crop + warp preprocessing runs on the device over a whole
 batch at once (one warp kernel launch per batch), and single-frame or TBPTT
 batches drive ``parallel/train.py``'s step.  ``--synthetic`` trains on
-generated data, so the loop runs without UmeTrack_data.  Checkpoints are
+generated data, so the loop runs without UmeTrack_data.  With
+``--coordinator host:port --num-processes N --process-id i`` each process
+joins a ``torch.distributed`` group and trains on its block of every global
+batch (NCCL between cards, gloo with ``--device cpu``).  Checkpoints are
 flax ``.msgpack`` files (``{dir}/step_{step:07d}.msgpack`` and
 ``{dir}/final.msgpack``), which the JAX package loads too.  Runs on the GPU
 unless ``--device cpu`` is given.
@@ -30,6 +33,8 @@ from ..data import Sampler, Split, bundles, find_dataset, iterate_dataset, prefe
 from ..data.transform import RawSequence, parse_raw_buffers, preprocess_sequence
 from ..kinematics.hand import scaled_hand_model
 from ..models.umetrack import FrameInputs, SkeletonInputs
+from ..parallel.distributed import finalize
+from ..parallel.mesh import Mesh, block, make_mesh, shard_variables
 from ..parallel.resident import _np_rigid_inverse
 from ..parallel import (
     ClippedAdamW,
@@ -43,6 +48,7 @@ from ..parallel import (
     warmup_cosine_decay_schedule,
 )
 from ..utils.checkpoints import load_checkpoint, save_checkpoint
+from .common import add_distributed_flags, join_process_group
 
 logger = logging.getLogger(__name__)
 
@@ -252,31 +258,43 @@ def tracker_domain_batches(
 
 
 def synthetic_batches(
-    batch_size: int, crop_size, window: int = 1, device=None
+    batch_size: int, crop_size, window: int = 1, device=None, distrib_info=(0, 1),
 ) -> Iterator[Union[TrainBatch, TemporalTrainBatch]]:
-    """Batches of generated torch_data samples (120 x 160 pinhole frames,
-    ``max(window, 1)`` frames each, 50 distinct sequences, alternating
-    hands), built on ``device`` (CUDA unless "cpu")."""
+    """Batches of generated torch_data samples (120 x 160 pinhole frames
+    with the hand rendered, ``max(window, 1)`` frames each, 50 distinct
+    sequences, alternating hands), built on ``device`` (CUDA unless
+    "cpu").  Under ``distrib_info=(rank, world)`` each global batch of
+    ``batch_size`` sequences is split into ``world`` contiguous blocks and
+    this rank builds block ``rank``, as a mesh's ``data`` axis splits it."""
     from ..utils.synthetic import make_torchdata_sample
 
+    rows = block(batch_size, Mesh(data=distrib_info[1], rank=distrib_info[0]))
     seed = 0
     while True:
         items = []
-        for _ in range(batch_size):
+        for j in range(rows.start, rows.stop):
             mono, labels = make_torchdata_sample(
-                rng_seed=seed % 50, t=max(window, 1), hand_idx=seed % 2
+                rng_seed=(seed + j) % 50, t=max(window, 1), hand_idx=(seed + j) % 2,
+                render=True, device=device,
             )
             items.append({"mono": mono, "labels": labels})
-            seed += 1
+        seed += batch_size
         yield _batch_from_sequences(items, crop_size, window, device=device)
 
 
-def dataset_batches(cfg: Config, device=None) -> Iterator[Union[TrainBatch, TemporalTrainBatch]]:
+def dataset_batches(
+    cfg: Config, device=None, distrib_info=None,
+) -> Iterator[Union[TrainBatch, TemporalTrainBatch]]:
     """Batches of the TRAIN split of ``cfg.data.data_roots``, reshuffled per
     epoch, with a random TBPTT window start per batch when
     ``cfg.train.tbptt_window`` > 1; built on ``device`` (CUDA unless
-    "cpu")."""
+    "cpu").  Under ``distrib_info=(rank, world)`` (default the config's
+    ``mesh.rank``, ``mesh.world_size``) this rank reads its own shard of the
+    sequences and builds ``batch_size // world`` rows of each global batch;
+    every rank draws the same window starts."""
     device = resolve_device(device)
+    rank, world = distrib_info or (cfg.mesh.rank, cfg.mesh.world_size)
+    rows = block(cfg.train.batch_size, Mesh(data=world, rank=rank))
     datasets = find_dataset(list(cfg.data.data_roots), list(cfg.data.fields))
     dataset = datasets[Split.TRAIN]
     logger.info("training sequences: %d", len(dataset))
@@ -286,7 +304,7 @@ def dataset_batches(cfg: Config, device=None) -> Iterator[Union[TrainBatch, Temp
     while True:
         sampler = Sampler(
             len(dataset), shuffle=True, seed=cfg.data.shuffle_seed + epoch,
-            distrib_info=(cfg.mesh.rank, cfg.mesh.world_size),
+            distrib_info=(rank, world),
         )
         batch = []
         for item in iterate_dataset(
@@ -294,7 +312,7 @@ def dataset_batches(cfg: Config, device=None) -> Iterator[Union[TrainBatch, Temp
             max_prefetch=cfg.data.max_prefetch,
         ):
             batch.append(item)
-            if len(batch) == cfg.train.batch_size:
+            if len(batch) == rows.stop - rows.start:
                 t0 = None
                 if k > 1:
                     t_len = int(batch[0]["mono"].shape[0])
@@ -321,13 +339,21 @@ def run_training(
     ``init_checkpoint``) on ``device`` (CUDA unless "cpu") for ``num_steps``
     batches (default ``cfg.train.num_steps``): AdamW with global-norm
     clipping at 1.0, a constant or warmup-cosine learning rate.  Batches
-    are built one or two ahead in a host thread.  Returns (state, history
-    of the logged losses)."""
+    are built one or two ahead in a host thread.  Under a process group
+    every rank runs this with its own block of each global batch
+    (``synthetic_batches`` / ``dataset_batches`` with the rank's
+    ``distrib_info``): the weights are broadcast from rank 0, each step
+    trains on the global batch (``parallel/train.py``), and only rank 0
+    writes checkpoints.  Returns (state, history of the logged losses)."""
     device = resolve_device(device)
     model = init_train_model(cfg.model, seed=0, device=device)
     if init_checkpoint:
         model.load_state_dict(load_checkpoint(init_checkpoint, cfg.model))
         logger.info("resumed weights from %s", init_checkpoint)
+    mesh = make_mesh()
+    shard_variables(model, mesh)
+    logger.info("mesh: %s, rank %d", mesh.shape, mesh.rank)
+    writes_checkpoints = bool(cfg.train.checkpoint_dir) and mesh.rank == 0
 
     num_steps = num_steps or cfg.train.num_steps
     if cfg.train.lr_schedule == "cosine":
@@ -371,9 +397,9 @@ def run_training(
                 step, loss, float(metrics["angle_loss"]), float(metrics["point_loss"]),
                 float(metrics["landmark_nll"]), (step + 1) / (time.time() - t_start),
             )
-        if cfg.train.checkpoint_dir and step > 0 and step % cfg.train.checkpoint_every == 0:
+        if writes_checkpoints and step > 0 and step % cfg.train.checkpoint_every == 0:
             _checkpoint(model, f"{cfg.train.checkpoint_dir}/step_{step:07d}.msgpack")
-    if cfg.train.checkpoint_dir:
+    if writes_checkpoints:
         _checkpoint(model, f"{cfg.train.checkpoint_dir}/final.msgpack")
     return state, history
 
@@ -394,6 +420,7 @@ def main(argv=None):
         "--device", default=None, help="'cuda[:i]' (the default; raises without a GPU) or 'cpu'"
     )
     parser.add_argument("--print-config", action="store_true")
+    add_distributed_flags(parser)
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -412,16 +439,22 @@ def main(argv=None):
         print(to_json(cfg))
         return None
 
+    if not args.synthetic and not cfg.data.data_roots:
+        raise SystemExit("--data or the config's data_roots is required (or --synthetic)")
     device = resolve_device(args.device)
-    if args.synthetic:
-        batches = synthetic_batches(
-            cfg.train.batch_size, cfg.data.crop_size, cfg.train.tbptt_window, device
-        )
-    else:
-        if not cfg.data.data_roots:
-            raise SystemExit("--data or the config's data_roots is required (or --synthetic)")
-        batches = dataset_batches(cfg, device)
-    return run_training(cfg, batches, device=device)
+    joined = join_process_group(args)
+    shard = joined or (0, 1)
+    try:
+        if args.synthetic:
+            batches = synthetic_batches(
+                cfg.train.batch_size, cfg.data.crop_size, cfg.train.tbptt_window, device, shard
+            )
+        else:
+            batches = dataset_batches(cfg, device, shard)
+        return run_training(cfg, batches, device=device)
+    finally:
+        if joined:
+            finalize()
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ import logging
 from typing import Optional, Tuple
 
 from .models.config import ModelConfig
+from .parallel.mesh import TP_NOT_PORTED
 from .tracker.types import SAMPLERS, TrackerConfig
 
 logger = logging.getLogger(__name__)
@@ -45,19 +46,18 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Kept for the config files' sake: the port runs on one device, and a
-    mesh of more raises (the multi-device code is not ported yet)."""
+    """``rank`` / ``world_size``: this process's shard of the host-local
+    work (``parallel/distributed.py``); ``model_axis``: the tensor-parallel
+    axis, which the port keeps at 1 (``parallel/mesh.py``: other values,
+    the JAX package's 0 = auto included, raise)."""
 
     model_axis: int = 1
     rank: int = 0
     world_size: int = 1
 
     def __post_init__(self):
-        if self.world_size > 1 or self.model_axis > 1:
-            raise NotImplementedError(
-                f"{self}: more than one device needs the multi-device slice of the port "
-                "(parallel/mesh.py, distributed.py over torch.distributed), not ported yet"
-            )
+        if self.model_axis != 1:
+            raise NotImplementedError(TP_NOT_PORTED.format(self.model_axis))
 
 
 @dataclasses.dataclass(frozen=True)

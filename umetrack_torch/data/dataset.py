@@ -11,12 +11,16 @@ The port's own copy of ``umetrack_tpu/data/dataset.py`` (numpy only):
   transform run in worker threads while the device consumes earlier
   batches.
 
-The optional native (C++) reader of the JAX package is not ported: every
-read goes through :class:`~umetrack_torch.data.idxbin.IdxBinFile`.
+A folder's files are read by the native reader (``data/native.py``, C++
+built with ``g++`` at first use) when it builds, as the JAX package reads
+them, or by the Python reader :class:`~umetrack_torch.data.idxbin.IdxBinFile`
+(``UMETRACK_NATIVE_IO=0``, ``native=False`` or ``preload=True``).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import queue
 import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -26,6 +30,8 @@ import numpy as np
 from . import fs
 from .idxbin import IDX_SUFFIX, IdxBinFile
 from .split import Split
+
+logger = logging.getLogger(__name__)
 
 
 def find_torchdata_folders(
@@ -40,15 +46,44 @@ def find_torchdata_folders(
     return sorted(out)
 
 
+def _native_reader_builds() -> bool:
+    from . import native
+
+    try:
+        native.load_library()
+    except (RuntimeError, OSError) as exc:
+        logger.warning("the native idx/bin reader does not build (%s): reading in Python", exc)
+        return False
+    return True
+
+
 class FolderDataset:
     """One torch_data folder: a dict of equally-long idx/bin fields.
-    ``preload`` pulls every .bin into RAM up front."""
 
-    def __init__(self, folder: str, fields: Sequence[str], preload: bool = False):
+    ``native=True`` reads through the native reader (raises if it cannot be
+    built), ``False`` through the Python reader, and ``None`` (the default)
+    takes the native reader when it builds, unless ``UMETRACK_NATIVE_IO=0``
+    is set; which one was taken is logged and kept in ``self.native``.
+    ``preload`` pulls every .bin into RAM up front (Python reader)."""
+
+    def __init__(
+        self, folder: str, fields: Sequence[str], native: Optional[bool] = None,
+        preload: bool = False,
+    ):
         self.folder = folder
         self.fields = tuple(fields)
-        self._files: Dict[str, IdxBinFile] = {
-            f: IdxBinFile.open(fs.join(folder, f + IDX_SUFFIX)) for f in fields
+        if preload:
+            native = False
+        elif native is None:
+            native = os.environ.get("UMETRACK_NATIVE_IO", "1") != "0" and _native_reader_builds()
+        self.native = native
+        if native:
+            from .native import NativeIdxBin as opener
+        else:
+            opener = IdxBinFile.open
+        logger.info("reading %s with the %s reader", folder, "native" if native else "Python")
+        self._files: Dict[str, Any] = {
+            f: opener(fs.join(folder, f + IDX_SUFFIX)) for f in fields
         }
         if preload:
             for file in self._files.values():
@@ -80,10 +115,11 @@ class ConcatDataset:
 
 def find_dataset(
     roots: Sequence[str] | str, fields: Sequence[str],
-    preload: bool = False,
+    preload: bool = False, native: Optional[bool] = None,
 ) -> Dict[Split, ConcatDataset]:
     """Discover datasets under one or more roots, grouped by split (the leaf
-    folder name).  ``preload`` pulls every .bin into RAM up front."""
+    folder name).  ``preload`` pulls every .bin into RAM up front;
+    ``native`` picks the reader as :class:`FolderDataset` does."""
     if isinstance(roots, str):
         roots = [roots]
     by_split: Dict[Split, List[FolderDataset]] = {s: [] for s in Split}
@@ -93,7 +129,7 @@ def find_dataset(
             for split in Split:
                 if leaf == split.value:
                     by_split[split].append(
-                        FolderDataset(folder, fields, preload=preload)
+                        FolderDataset(folder, fields, native=native, preload=preload)
                     )
     return {s: ConcatDataset(ds) for s, ds in by_split.items() if ds}
 

@@ -11,6 +11,7 @@ is flax's.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -26,7 +27,11 @@ class BatchNorm(nn.BatchNorm2d):
     is normalised with its own mean and biased variance, and the running
     stats move to ``0.9 * old + 0.1 * batch`` with the BIASED variance
     (``nn.BatchNorm2d`` puts the unbiased one into ``running_var``).  Eval
-    mode is ``nn.BatchNorm2d``'s own."""
+    mode is ``nn.BatchNorm2d``'s own.
+
+    Under a ``torch.distributed`` process group (of any size) train mode
+    normalises with the statistics of the GLOBAL batch, as the JAX train
+    step does over its mesh: see :meth:`_synchronised`."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
@@ -34,11 +39,37 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if dist.is_available() and dist.is_initialized():
+            return self._synchronised(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+            self._update_running_stats(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _update_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+
+    def _synchronised(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the process group: per channel the count, sum and
+        sum of squares of every rank's batch are summed by the
+        differentiable ``all_reduce`` (its backward sums the ranks'
+        gradients), giving the global mean and flax's biased variance
+        ``E[x^2] - E[x]^2`` clipped at 0 (flax's ``use_fast_variance``).  The
+        running stats move with those global moments, and the normalisation
+        is written out, so the gradient flows through the reductions.
+        ``nn.SyncBatchNorm`` is not used: it stores the unbiased variance."""
+        from torch.distributed.nn.functional import all_reduce
+
+        dims = (0, 2, 3)
+        count = torch.full_like(self.running_mean, x.numel() // x.shape[1])
+        moments = all_reduce(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
+        mean = moments[0] / moments[2]
+        var = torch.clamp(moments[1] / moments[2] - mean * mean, min=0.0)
+        with torch.no_grad():
+            self._update_running_stats(mean, var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):

@@ -1,8 +1,9 @@
-"""Training on one device: the supervised step (``train``), its optimizer
-(``optim``) and the device-resident trainer (``resident``).  The JAX
-package's multi-device modules (``mesh``, ``eval``, ``distributed``) are not
-ported yet."""
-from . import optim, resident, train
+"""Training and evaluation across processes: the supervised step
+(``train``), its optimizer (``optim``), the device-resident trainer
+(``resident``), the batched and sharded evaluation (``eval``), the process
+group (``distributed``) and the data-parallel mesh over it (``mesh``)."""
+from . import distributed, eval, mesh, optim, resident, train
+from .mesh import make_mesh, shard_batch, shard_variables
 from .optim import ClippedAdamW, warmup_cosine_decay_schedule
 from .train import (
     LossWeights,
@@ -19,6 +20,12 @@ from .train import (
 )
 
 __all__ = [
+    "distributed",
+    "eval",
+    "mesh",
+    "make_mesh",
+    "shard_batch",
+    "shard_variables",
     "optim",
     "resident",
     "train",

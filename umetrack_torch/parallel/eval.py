@@ -1,0 +1,155 @@
+"""Batched and sharded sequence evaluation.
+
+Counterpart of ``umetrack_tpu/parallel/eval.py``.  S sequences are tracked
+in lock-step (``track_sequences_batched``: one ``warp_pool`` launch for all
+their frames) and each gets its mean landmark error.  Across processes the
+sequences shard by rank in contiguous blocks (:func:`shard_eval_inputs`,
+rows ``2i, 2i+1`` of the tracker state go with sequence ``i``), the
+recurrence keeps each sequence on one card, the weights are replicated,
+and the per-sequence results and the global mean are reduced with the
+process group's collectives, where the JAX package lets XLA insert them
+on its mesh.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from .._device import resolve_device
+from ..kinematics.hand import HandModel, scaled_hand_model
+from ..models.umetrack import UmeTrackNet
+from ..tracker.crops import landmarks_from_pose
+from ..tracker.tracker import calibrate_sequences_batched, track_sequences_batched
+from ..tracker.types import CameraRig, FrameObservation, TrackerConfig, TrackState
+from .distributed import is_initialized
+from .mesh import Mesh, block
+
+
+def make_batched_state(model: UmeTrackNet, n_sequences: int, device=None) -> TrackState:
+    """Flat ``[2S]``-row tracker state for the batched and sharded path, on
+    ``device`` (CUDA unless "cpu")."""
+    return TrackState.init(model.config, 2 * n_sequences, device=resolve_device(device))
+
+
+def _all_gather(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' equal blocks of ``x`` concatenated in rank order."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts)
+
+
+@torch.inference_mode()
+def eval_sequences_batched(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rigs: CameraRig,  # fields [S, N]
+    seqs: FrameObservation,  # leaves [S, T, ...]
+    init_state: TrackState,  # leaves [2S, ...]
+    hand_models_mm: HandModel,  # [S, ...]
+    min_num_crops: int = 1,
+    skel_hand_models_mm: Optional[HandModel] = None,
+    lm_hand_models_mm: Optional[HandModel] = None,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Track S sequences and compute each one's mean landmark error (mm)
+    over its valid (frame, hand) slots.
+
+    ``skel_hand_models_mm`` overrides the model's skeleton input and
+    ``lm_hand_models_mm`` the skeleton that skins the tracked landmarks (the
+    unknown protocol passes the calibrated generic skeleton for both); crops
+    and GT landmarks always come from ``hand_models_mm``.
+
+    Returns (per-sequence error [S], valid slots per sequence [S], global
+    mean): the mean over the sequences with at least one valid slot.  Under
+    a process group the inputs are this rank's shard
+    (:func:`shard_eval_inputs`) and the results are global: the ranks'
+    per-sequence blocks gathered in rank order, the mean reduced from every
+    rank's masked sum and count."""
+    results, _ = track_sequences_batched(
+        model, config, rigs, seqs, init_state, hand_models_mm, min_num_crops,
+        skel_hand_models_mm, device=device,
+    )
+    device = results.valid.device
+    # results leaves [T, S, 2, ...] -> [S, T, 2, ...]
+    angles = results.joint_angles.transpose(0, 1)
+    wrists = results.wrist_xfs.transpose(0, 1)
+    valid = results.valid.transpose(0, 1)
+    hand_idx = torch.arange(2, device=device)
+    hands = hand_models_mm.to(device)
+    lm_models = hands if lm_hand_models_mm is None else lm_hand_models_mm.to(device)
+    tracked = landmarks_from_pose(lm_models.unsqueeze_batch(2), angles, wrists, hand_idx)
+    gt = landmarks_from_pose(
+        hands.unsqueeze_batch(2), seqs.gt_joint_angles.to(device), seqs.gt_wrist_xfs.to(device),
+        hand_idx,
+    )  # [S, T, 2, 21, 3]
+
+    err = torch.linalg.vector_norm(tracked - gt, dim=-1).mean(dim=-1)  # [S, T, 2]
+    vmask = valid.to(err.dtype)
+    n_valid = vmask.sum(dim=(1, 2))
+    per_seq_err = (err * vmask).sum(dim=(1, 2)) / torch.clamp(n_valid, min=1.0)
+    has_valid = (n_valid > 0).to(err.dtype)
+    totals = torch.stack([(per_seq_err * has_valid).sum(), has_valid.sum()])
+    if is_initialized():
+        per_seq_err, n_valid = _all_gather(per_seq_err), _all_gather(n_valid)
+        dist.all_reduce(totals)
+    return per_seq_err, n_valid, totals[0] / torch.clamp(totals[1], min=1.0)
+
+
+@torch.inference_mode()
+def eval_sequences_unknown_batched(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rigs: CameraRig,  # fields [S, N]
+    seqs: FrameObservation,  # leaves [S, T, ...]
+    hand_models_mm: HandModel,  # [S, ...] GT skeletons (crops + GT landmarks)
+    generic_hand_model_mm: HandModel,  # unbatched generic skeleton
+    n_calibration_samples: int = 30,
+    min_num_crops: int = 1,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two-pass unknown-skeleton protocol for S sequences: the batched
+    scale calibration on 2-view frames (``calibrate_sequences_batched``
+    with its own ``min_num_crops=2``), then the batched known-skeleton
+    retrack with each sequence's calibrated generic skeleton.  With
+    :func:`eval_sequences_batched` this covers all four protocol cells
+    ({known, unknown} x dataset split).
+
+    Returns (per-sequence error, valid slots, global mean, scales), each
+    global under a process group as in :func:`eval_sequences_batched`."""
+    device = resolve_device(device)
+    s = rigs.fx.shape[0]
+    scales = calibrate_sequences_batched(
+        model, config, rigs, seqs, make_batched_state(model, s, device), hand_models_mm,
+        n_calibration_samples, device=device,
+    )  # [S]
+    generic_b = generic_hand_model_mm.to(device).map(lambda a: a.expand(s, *a.shape))
+    calibrated = scaled_hand_model(generic_b, scales)
+    per_seq, n_valid, global_mean = eval_sequences_batched(
+        model, config, rigs, seqs, make_batched_state(model, s, device), hand_models_mm,
+        min_num_crops, skel_hand_models_mm=calibrated, lm_hand_models_mm=calibrated,
+        device=device,
+    )
+    if is_initialized():
+        scales = _all_gather(scales)
+    return per_seq, n_valid, global_mean, scales
+
+
+def shard_eval_inputs(
+    rank: int, world: int, rigs: CameraRig, seqs: FrameObservation,
+    init_state: TrackState, hand_models: HandModel,
+):
+    """This rank's contiguous block of the S-leading inputs and the matching
+    ``[2S]`` state rows (rows ``2i, 2i+1`` live with sequence ``i``): the
+    split a ``NamedSharding`` over ``data`` makes.  Raises unless ``world``
+    divides S."""
+    mesh = Mesh(data=world, rank=rank)
+    s = rigs.fx.shape[0]
+    if s % world:
+        raise ValueError(f"{s} sequences do not split over {world} ranks")
+
+    def leading(tree):
+        return tree.map(lambda a: a[block(a.shape[0], mesh)])
+
+    return leading(rigs), leading(seqs), leading(init_state), leading(hand_models)

@@ -14,7 +14,12 @@ differs from PyTorch's defaults:
   included, and is scaled by the scheduled learning rate (as in optax,
   whose ``adamw`` has no mask here);
 - the schedule is evaluated at the count of updates made so far, so the
-  first update of a warmup has learning rate 0.
+  first update of a warmup has learning rate 0;
+- under a ``torch.distributed`` process group the gradients are summed over
+  the ranks (``all_reduce`` SUM) before the clip: each rank's loss is its
+  share of the global loss (``parallel/train.py`` divides by global
+  counts), so the sum is the gradient of the global loss and the clip sees
+  its global norm, as the JAX step does over its mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ import math
 from typing import Callable, Iterable, List, Optional, Union
 
 import torch
+import torch.distributed as dist
+
+from .distributed import is_initialized
 
 Schedule = Callable[[int], float]
 
@@ -49,6 +57,15 @@ def warmup_cosine_decay_schedule(
         return peak_value * ((1.0 - alpha) * cosine + alpha)
 
     return schedule
+
+
+@torch.no_grad()
+def all_reduce_sum_(grads: List[torch.Tensor]) -> None:
+    """Sum ``grads`` over the process group in place, in one collective."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 @torch.no_grad()
@@ -87,8 +104,10 @@ class ClippedAdamW(torch.optim.AdamW):
     def step(self, closure=None):
         if closure is not None:
             raise NotImplementedError("ClippedAdamW takes no closure")
+        grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
+        if is_initialized():
+            all_reduce_sum_(grads)
         if self.max_grad_norm is not None:
-            grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
             clip_by_global_norm_(grads, self.max_grad_norm)
         lr = float(self.schedule(self.count))
         for group in self.param_groups:

@@ -28,6 +28,16 @@ statistics and updates its running stats in place, flax's way
 
 No activation checkpointing: ``torch.utils.checkpoint`` runs the forward
 again in backward and would update the running stats a second time.
+
+Under a ``torch.distributed`` process group each rank holds a block of the
+global batch, and the step computes the JAX step over its mesh: every
+normalising count (valid rows, valid windows, scale rows) is summed over
+the ranks before the division, so each rank's loss is its share of the
+global loss; BatchNorm normalises with the global batch's statistics
+(``models/backbone.py``); ``ClippedAdamW`` sums the gradients over the
+ranks before clipping; and the returned metrics are summed over the ranks,
+i.e. the global batch's.  Per-rank means averaged over ranks would differ
+whenever the ranks hold different numbers of valid rows.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from .._tree import TensorTree
@@ -46,6 +57,7 @@ from ..kinematics.skinning import skin_landmarks
 from ..models.backbone import BatchNorm
 from ..models.components import gen_rigid_points
 from ..models.umetrack import FrameInputs, SkeletonInputs, TemporalState, UmeTrackNet, make_model
+from .distributed import is_initialized
 from .optim import ClippedAdamW
 
 
@@ -134,6 +146,23 @@ def running_stats_kept(model: UmeTrackNet):
                 b.copy_(s)
 
 
+def _global_count(count: torch.Tensor) -> torch.Tensor:
+    """A normalising count summed over the process group, at least 1."""
+    if is_initialized():
+        count = count.detach().clone()
+        dist.all_reduce(count)
+    return torch.clamp(count, min=1.0)
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Detached metrics; under a process group each is the sum of the
+    ranks' shares, i.e. the global batch's value."""
+    values = torch.stack([v.detach() for v in metrics.values()])
+    if is_initialized():
+        dist.all_reduce(values)
+    return dict(zip(metrics, values))
+
+
 def _rigid_points(model: UmeTrackNet, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(
         gen_rigid_points(model.config.n_wrist_rigid_pts), dtype=like.dtype, device=like.device
@@ -203,7 +232,7 @@ def _scale_loss(out_u, gt_scales: torch.Tensor, valid: Optional[torch.Tensor]) -
     """Log-scale MSE over the valid rows."""
     w_row = torch.ones_like(gt_scales) if valid is None else valid.to(gt_scales.dtype)
     sq = (torch.log(out_u.skel_scales) - torch.log(gt_scales)) ** 2
-    return torch.sum(w_row * sq) / torch.clamp(w_row.sum(), min=1.0)
+    return torch.sum(w_row * sq) / _global_count(w_row.sum())
 
 
 def loss_fn(
@@ -219,7 +248,7 @@ def loss_fn(
         model, out, batch.frame, batch.gt_joint_angles, batch.gt_wrist_world, batch.hand,
         batch.valid, rot_gain=weights.wrist_rot_gain,
     )
-    denom = torch.clamp(count, min=1.0)
+    denom = _global_count(count)
     angle_loss, point_loss, nll = angle_loss / denom, point_loss / denom, nll / denom
     total = (weights.angles * angle_loss + weights.wrist_points * point_loss
              + weights.landmark_nll * nll)
@@ -235,7 +264,7 @@ def loss_fn(
         "loss": total, "angle_loss": angle_loss, "point_loss": point_loss,
         "landmark_nll": nll, "scale_loss": scale_loss,
     }
-    return total, {k: v.detach() for k, v in metrics.items()}
+    return total, _global_metrics(metrics)
 
 
 def _second_diff(x: torch.Tensor) -> torch.Tensor:  # [K, ...] -> [K-2, ...]
@@ -271,7 +300,7 @@ def _accel_loss(
         (e0_t @ _x_mirrored(gt_wrist_t, hand_idx_t))[:, :, None], _rigid_points(model, e0_t)
     )
     valid3 = (valid_t[2:] & valid_t[:-2] & valid_t[1:-1]).to(torch.float32)  # [K-2, B]
-    n3 = torch.clamp(valid3.sum(), min=1.0)
+    n3 = _global_count(valid3.sum())
 
     def term(pred, gt):
         d = _second_diff(pred) - _second_diff(gt)
@@ -311,7 +340,7 @@ def temporal_loss_fn(
     # rows are (sum, sum, sum, count): normalise over ALL valid (row, frame)
     # supervision slots of the window
     sums = torch.stack(per_step).sum(dim=0)
-    denom = torch.clamp(sums[3], min=1.0)
+    denom = _global_count(sums[3])
     angle_loss, point_loss, nll = sums[0] / denom, sums[1] / denom, sums[2] / denom
 
     accel_loss = torch.zeros((), device=device)
@@ -334,7 +363,7 @@ def temporal_loss_fn(
         "loss": total, "angle_loss": angle_loss, "point_loss": point_loss,
         "landmark_nll": nll, "scale_loss": scale_loss, "accel_loss": accel_loss,
     }
-    return total, {key: v.detach() for key, v in metrics.items()}
+    return total, _global_metrics(metrics)
 
 
 def _apply_grads(state: TrainState, total: torch.Tensor) -> None:

@@ -11,6 +11,7 @@ JAX package's orbax format, which the port does not read.
 from __future__ import annotations
 
 import os
+import tempfile
 from typing import Dict, Optional
 
 import torch
@@ -49,10 +50,21 @@ def load_checkpoint(path: str, config: Optional[ModelConfig] = None) -> Dict[str
 
 def save_checkpoint(path: str, state_dict) -> str:
     """Write a port state dict as a flax ``.msgpack`` file, byte for byte
-    what ``flax.serialization.to_bytes`` writes for the same variables."""
+    what ``flax.serialization.to_bytes`` writes for the same variables.
+    The bytes go to a temporary file in the target's folder, which then
+    replaces the target in one step: a run killed mid-write leaves the
+    previous checkpoint whole and no partial file behind."""
     if not path.endswith(".msgpack"):
         raise NotImplementedError(f"{path!r}: only the .msgpack format is ported")
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as fp:
-        fp.write(_msgpack.packb(to_flax_variables(state_dict)))
+    folder = os.path.dirname(path) or "."
+    os.makedirs(folder, exist_ok=True)
+    data = _msgpack.packb(to_flax_variables(state_dict))
+    fd, tmp = tempfile.mkstemp(prefix=".tmp_", suffix=".msgpack", dir=folder)
+    try:
+        with os.fdopen(fd, "wb") as fp:
+            fp.write(data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return path

@@ -452,13 +452,20 @@ def make_torchdata_sample(rng_seed=0, t=3, v=2, h=120, w=160, hand_idx=1, hand_s
                           render: bool = False, device=None):
     """A synthetic raw torch_data sample ``(mono [T, V, H, W] uint8, labels)``
     in the msgpack label schema: pinhole views aimed at the hand near the
-    origin, mm units, smooth-noise frames, GT motion from
-    :func:`make_gt_motion`, and ``enclosing_points`` = the 63 crop points
-    (GT + neutral + open pose landmarks).  The focal length grows with the
-    frame width so the hand fills the same share of any size.  With
-    ``render=True`` the capsule ray tracer draws the hand into both views on
-    ``device`` (CUDA unless "cpu"; darker noise behind it, as in
-    :func:`make_labels_dict`)."""
+    origin, mm units, GT motion from :func:`make_gt_motion`, and
+    ``enclosing_points`` = the 63 crop points (GT + neutral + open pose
+    landmarks).
+
+    ``render=True`` is the JAX package's sample: its random numbers are
+    drawn in the JAX package's order (the motion, a per-sequence focal
+    length U(170, 235) and stroke thickness, the ``solved_joint_angles``
+    noise, the smooth background, then the capsule render), so both
+    packages give the same labels for one seed, and the capsule ray tracer
+    draws the hand into both views on ``device`` (CUDA unless "cpu").
+    ``render=False`` (the default) is the port's own: smooth-noise frames
+    on the CPU and a focal length that grows with the frame width, so the
+    hand fills the same share of any size (the JAX package's unrendered
+    sample needs OpenCV)."""
     rng = np.random.default_rng(rng_seed)
     generic_dict = load_generic_hand_dict()
     hand_dict = generic_dict if hand_scale is None else scaled_hand_dict(generic_dict, hand_scale)
@@ -473,8 +480,13 @@ def make_torchdata_sample(rng_seed=0, t=3, v=2, h=120, w=160, hand_idx=1, hand_s
     extr = np.stack([np.linalg.inv(p).astype(np.float32) for p in cam_poses])  # world->eye
     extr = np.tile(extr, (t, 1, 1, 1))
 
+    if render:
+        focal = float(rng.uniform(170.0, 235.0))
+        rng.integers(2, 5)  # the JAX package's stroke thickness: drawn to keep its order
+    else:
+        focal = 1.25 * w
     intr = np.tile(np.eye(3, dtype=np.float32), (t, v, 1, 1))
-    intr[..., 0, 0] = intr[..., 1, 1] = 1.25 * w
+    intr[..., 0, 0] = intr[..., 1, 1] = focal
     intr[..., 0, 2] = (w - 1) / 2
     intr[..., 1, 2] = (h - 1) / 2
     solved_angles = angles + rng.normal(0, 0.05, size=(t, 22)).astype(np.float32)
@@ -518,13 +530,15 @@ def make_torchdata_sample(rng_seed=0, t=3, v=2, h=120, w=160, hand_idx=1, hand_s
 
 
 def write_torchdata_corpus(
-    root: str, n_train: int = 0, n_test: int = 8, t: int = 16, v: int = 2,
-    h: int = 120, w: int = 160, seed0: int = 0,
+    root: str, n_train: int = 64, n_test: int = 8, t: int = 16, v: int = 2,
+    h: int = 120, w: int = 160, seed0: int = 0, render: bool = True, device=None,
 ) -> dict:
     """Write a synthetic torch_data corpus to disk (``training`` and
     ``testing`` folders under ``root/synthetic/``, one idx/bin item per
     sequence), alternating hands and varying the GT hand scale per
-    sequence.  Returns {split name: folder}."""
+    sequence; the hands are rendered on ``device`` (CUDA unless "cpu")
+    unless ``render=False``, as the JAX package renders its corpus.
+    Returns {split name: folder}."""
     from ..data.idxbin import write_idxbin
 
     out = {}
@@ -536,7 +550,7 @@ def write_torchdata_corpus(
             scale = float(np.random.default_rng(seed0 + base + i).uniform(0.85, 1.15))
             mono, labels = make_torchdata_sample(
                 rng_seed=seed0 + base + i, t=t, v=v, h=h, w=w,
-                hand_idx=i % 2, hand_scale=scale,
+                hand_idx=i % 2, hand_scale=scale, render=render, device=device,
             )
             monos.append(mono)
             labels_list.append(labels)
