@@ -6,7 +6,9 @@
 Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without a result line:
 
-1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions);
+1. the device (``nvidia-smi`` name and power limit, torch and CUDA versions,
+   and whether cuDNN and matmuls may use TF32: PyTorch lets cuDNN, so every
+   "f32" convolution below runs in TF32 unless a phase says TF32 off);
 2. the build of ``umetrack_torch/csrc/warp_pool.cu`` and ``warp_image.cu``
    with their shared header, and of the native idx/bin reader
    ``umetrack_io.cpp`` (the ``nvcc`` and ``g++`` runs started together,
@@ -22,7 +24,13 @@ exits non-zero without a result line:
 4. ``track_sequences_batched`` at the full width of ``ModelConfig()`` (f32),
    S=64, T=16, seeded random weights: one kernel launch per call, finite
    outputs, wall time per call and frames/s; then one call under
-   torch.profiler (device time by kernel, the device's busy share);
+   torch.profiler (device time by kernel, the device's busy share); then
+   the same call with ``ModelConfig(compute_dtype="bfloat16")`` and the
+   same seeded weights, in turns with f32 with TF32 on and off: ms per call,
+   frames/s, peak memory, each under the profiler with its device time by
+   kind of kernel (BN, ReLU, add, layout, convolutions, the pool kernel),
+   bf16 against f32 (TF32 off) at ``tests/test_bf16.py``'s bounds, and
+   ``eval_sequences_batched`` in bf16;
 5. the two single-image warp kernels (``warp_image_full``,
    ``warp_image_windowed``) against their plain version: the torch_data
    shape (512 images of 480 x 640, uint8 and f32, coordinate fields from
@@ -37,8 +45,10 @@ exits non-zero without a result line:
    width: one windowed-kernel launch per batch, finite error, sequences/s
    and frames/s with the native idx/bin reader (checked to be the one
    taken) and in turns with the Python reader, the label decode both ways,
-   where a batch's time goes, one batch under torch.profiler; then a
-   120 x 160 tree (one full-kernel launch per batch);
+   where a batch's time goes, one batch under torch.profiler; the app's
+   ``main`` with ``--dtype bfloat16`` (one windowed launch a batch) and
+   ``run()`` in bf16 in turns with f32; then a 120 x 160 tree (one
+   full-kernel launch per batch);
 7. card against CPU, TF32 off: the tracker at S=2, T=4 (1e-3 rad, 0.1 mm),
    the torch_data ``_run_batch`` on 2 sequences of T=4 (0.1 mm, crops within
    2e-3), and on the card the tracker with ``sampler="kernel_win"`` against
@@ -59,7 +69,11 @@ exits non-zero without a result line:
    OpenCV); the streaming eval (chunk 16) against the whole-sequence eval
    with its ``PhaseTimers`` report; one sequence under torch.profiler; and
    ``eval_sequence_known`` / ``eval_sequence_unknown`` on the card against
-   the CPU.  Every comparison of two differently batched calls runs twice:
+   the CPU; then in bf16: ``track_frame`` against ``track_sequence`` on the
+   rendered sequence (seeded weights at ``tests/test_tracker.py``'s bf16
+   bounds, the checkpoint with ``TRAINED``'s slack added), the card's bf16
+   tracker against the CPU's, and the known app's ``main --dtype
+   bfloat16`` (its MPJPE beside f32's, a finding).  Every comparison of two differently batched calls runs twice:
    with seeded random weights at the JAX tests' bounds (1e-3 rad, 0.1 mm,
    scale 2e-3, chunked keypoints 2e-3 mm) and with the checkpoint at wider
    ones, for the reason given at ``TRAINED`` below; on the same crops the
@@ -85,9 +99,12 @@ exits non-zero without a result line:
    frames, one ``warp_pool`` launch a sequence), the device-resident corpus
    and ``run_resident_training`` at 32 hand rows x K=8 for 40 steps (loss
    falls, eval MPJPE finite, steps/s, peak memory, one step under the
-   profiler); ``apps/train.py::main`` on synthetic 120 x 160 batches of 32 x
-   8 frames (one ``warp_image_full`` launch a batch; the final ``.msgpack``
-   reloads to the same forward) and on a 480 x 640 training tree (one
+   profiler), then ``run_resident_training`` with a bf16 model (loss finite
+   and falling, ms per step beside f32's); ``apps/train.py::main`` on
+   synthetic 120 x 160 batches of 32 x 8 frames (one ``warp_image_full``
+   launch a batch; the final ``.msgpack`` reloads to the same forward),
+   again with a JSON config whose ``model.compute_dtype`` is bfloat16, and
+   on a 480 x 640 training tree (one
    ``warp_image_windowed`` launch a batch); ``run_distillation`` with the
    checkpoint as a ``.torch`` teacher (finite gaps and metric set);
 11. a ``{"kernels": [...]}`` line, then the last line
@@ -163,6 +180,23 @@ RES_SEQS, RES_T, RES_STEPS = 32, 16, 40  # the resident trainer: 32 hand rows x 
 APP_STEPS = 4  # train app on synthetic batches of 32 x 8 frames
 TREE_SEQS, TREE_BATCH = 32, 16  # train app on a 480 x 640 tree, one epoch
 DISTILL_STEPS, DISTILL_EVAL_SEQS = 20, 2
+# the bfloat16 compute dtype: bf16 against f32 at tests/test_bf16.py's bounds
+# (measured on an H100 80GB HBM3: 7.1e-4 rad, orthonormal within 8.3e-7);
+# track_frame against track_sequence in bf16 at tests/test_tracker.py:269-270's
+# (seeded weights; measured 9.8e-4 rad, 0.15 mm), and with the checkpoint
+# those plus TRAINED's crop-fit slack (the reason is given at TRAINED: the
+# crops of a frame fitted alone differ from the sequence's by f32 rounding,
+# which trained weights amplify whatever the compute dtype; measured 1.6e-2
+# rad, 1.6 mm); the card's bf16 against the CPU's bf16 at the same bf16
+# bounds, the two rounding each layer's output after their own orders of
+# accumulation (measured 9.8e-4 rad, 0.16 mm)
+BF16 = "bfloat16"
+BF16_F32_ANGLE_TOL, BF16_ORTHO_TOL = 0.08, 1e-3
+BF16_LOOP = Bounds(2e-2, 2.0, SCALE_TOL, CHUNKED_TOL_MM)
+BF16_LOOP_TRAINED = Bounds(2e-2 + TRAINED.angle, 2.0 + TRAINED.mm, SCALE_TOL, TRAINED.chunked_mm)
+BF16_CPU = Bounds(2e-2, 2.0, SCALE_TOL, CHUNKED_TOL_MM)
+RES_BF16_STEPS = 16  # run_resident_training in bf16
+APP_BF16_STEPS = 2  # the train app in bf16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
@@ -221,6 +255,9 @@ def phase_device():
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log(f"[device] torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+        f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32} (PyTorch's "
+        f"defaults; every \"f32\" number below ran so unless it says TF32 off)")
     return card
 
 
@@ -799,7 +836,8 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
     med = sorted(times[1:])[len(times[1:]) // 2]
 
     geom, _ = wall_ms(lambda: pool_warp_operands(TrackerConfig(), rigs, seqs, hands))
-    log(f"[slice] track_sequences_batched S={s} T={t} full ModelConfig() f32: "
+    log(f"[slice] track_sequences_batched S={s} T={t} full ModelConfig() f32 (cuDNN TF32 "
+        f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): "
         f"{med * 1e3:.1f} ms/call median of {TRACK_CALLS} (first call {times[0] * 1e3:.1f} ms), "
         f"{s * t / med:.1f} frames/s, crop geometry alone {geom:.1f} ms, "
         f"valid hands {n_valid}/{res.valid.numel()}, peak mem "
@@ -845,7 +883,32 @@ def phase_profile(fn, label, kernel_name, card, top=15):
         f"busy share {total / wall_us:.3f}, {n_launches} kernel launches{share} [{card}]")
     for dev, count, key in rows[:top]:
         log(f"[profile] {dev / 1e3:9.3f} ms {dev / total:6.3f} x{count:<5d} {key[:100]}")
-    return dict(wall_ms=wall_us / 1e3, device_ms=total / 1e3, launches=n_launches)
+    return dict(wall_ms=wall_us / 1e3, device_ms=total / 1e3, launches=n_launches, rows=rows)
+
+
+# Kinds of device kernel by a piece of their name (lower case), first match
+# wins: the split that PERF.md's breakdowns of the tracker use.  cuDNN's
+# convolutions come as implicit GEMMs, sgemm convolutions, Winograd or FFT
+# (the FFT's complex GEMMs are ``gemm_cf32``); the crop geometry's real
+# GEMMs stay under "other".
+KERNEL_KINDS = (("warp_pool", ("warp_pool_kernel",)), ("layout", ("nchwtonhwc", "nhwctonchw")),
+                ("conv", ("fprop", "convolve", "conv2d", "implicit_gemm", "winograd", "fft",
+                          "gemm_cf32")),
+                ("BN", ("bn_fw", "batch_norm")), ("ReLU", ("clamp", "relu")), ("add", ("_add<",)),
+                ("max-pool", ("max_pool",)), ("copy/cast", ("copy",)))
+
+
+def kernel_shares(prof):
+    """{kind: share of device time} of a :func:`phase_profile` result, the
+    rest under "other"."""
+    total = sum(r[0] for r in prof["rows"])
+    shares = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    shares["other"] = 0.0
+    for dev, _, key in prof["rows"]:
+        name = key.lower()
+        kind = next((k for k, parts in KERNEL_KINDS if any(p in name for p in parts)), "other")
+        shares[kind] += dev / total
+    return shares
 
 
 # ---- the torch_data slice ---------------------------------------------------
@@ -956,10 +1019,13 @@ def batch_breakdown(model, root, card):
 
 
 def phase_torchdata_slice(wp_mod, wi_mod, model, card):
+    import contextlib
+    import io
     import math
 
     import torch
     from umetrack_torch.apps import run_inference_torch_data as app
+    from umetrack_torch.apps.common import load_model_cli
     from umetrack_torch.data import Split
     from umetrack_torch.utils.synthetic import write_torchdata_corpus
 
@@ -1004,6 +1070,31 @@ def phase_torchdata_slice(wp_mod, wi_mod, model, card):
             f"(UMETRACK_NATIVE_IO=0, in turns with the native one): "
             f"{', '.join(f'{w:.1f}' for w in walls['Python'])} ms/run [{card}]")
 
+        # the app in bf16 (``--dtype bfloat16``, the same seeded weights): its
+        # ``main`` counted from 0, then ``run()`` in turns with the f32 model
+        model16 = load_model_cli(None, BF16, "cuda")
+        reset_launches(wp_mod, wi_mod)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            app.main(["--data", big, "--batch-size", str(TD_BATCH), "--dtype", BF16, "--json",
+                      "--device", "cuda"])
+        counts16 = launches(wp_mod, wi_mod)
+        check(counts16 == (0, 0, n_batches),
+              f"bf16 app: launches (pool, full, windowed) {counts16} in {n_batches} batches")
+        err16 = list(json.loads(printed.getvalue().strip().splitlines()[-1]).values())
+        check(len(err16) == 1 and math.isfinite(err16[0]), f"bf16 app: {err16}")
+        turns = {}
+        for label, m in (("f32", model), ("bf16", model16)) * 3:
+            turns.setdefault(label, []).append(wall_ms(lambda: app.run([big], m, batch_size=TD_BATCH))[0])
+        med16, med32 = sorted(turns["bf16"])[1], sorted(turns["f32"])[1]
+        log(f"[bf16] run_inference_torch_data main --dtype bfloat16 over the {TD_H} x {TD_W} tree: one "
+            f"warp_image_windowed launch per batch, mean error {err16[0]:.1f} mm (f32: "
+            f"{res[Split.TEST]:.1f}); run() in turns with f32: bf16 {med16:.1f} ms/run median of 3 "
+            f"({', '.join(f'{w:.1f}' for w in turns['bf16'])}), {TD_SEQS / med16 * 1e3:.1f} sequences/s; "
+            f"f32 {med32:.1f} ms ({', '.join(f'{w:.1f}' for w in turns['f32'])}), "
+            f"{TD_SEQS / med32 * 1e3:.1f} sequences/s [{card}]")
+        del model16
+
         raws = batch_breakdown(model, big, card)
         phase_profile(lambda: app._run_batch(model, raws), "one torch_data batch (_run_batch)",
                       "warp_image_windowed_kernel", card, top=10)
@@ -1017,7 +1108,7 @@ def phase_torchdata_slice(wp_mod, wi_mod, model, card):
               f"120 x 160 tree: launches (pool, full, windowed) {counts_small}")
         log(f"[torch_data] run() over {TD_SEQS} sequences, 120 x 160: {small_ms:.1f} ms, "
             f"{TD_SEQS / small_ms * 1e3:.1f} sequences/s, one warp_image_full launch per batch [{card}]")
-    return counts[2], counts_small[1]
+    return counts[2], counts_small[1], counts16[2]
 
 
 # ---- card against CPU -------------------------------------------------------
@@ -1411,7 +1502,8 @@ def phase_unknown(models, tally, rigs, seqs, hands, card):
 def phase_eval_apps(models, tally, card):
     """The two eval apps' ``main`` on generated sequences with the
     checkpoint, ``load_eval``'s aggregate, the streaming eval against the
-    whole-sequence eval, and one sequence under the profiler."""
+    whole-sequence eval, and one sequence under the profiler.  Returns the
+    known-skeleton app's ``load_eval`` summary."""
     import contextlib
     import io
     import pickle
@@ -1454,6 +1546,7 @@ def phase_eval_apps(models, tally, card):
                 f"MPJPE {summ['mpjpe_mm']:.3f} mm, PCK-AUC {summ['pck_auc']:.4f}, MPJPA "
                 f"{summ['mpjpa_deg']:.3f} deg, acceleration {summ['mean_keypoint_acceleration']:.3f} "
                 f"(GT {summ['gt_mean_keypoint_acceleration']:.3f})")
+        f32_known = summaries["known_skeleton/separate_hand"]
         log(f"[eval] ({MPJPA_CAVEAT})")
         log("[eval] capsule-rendered frames; the checkpoint was trained on the stroke style, which "
             "needs OpenCV: these accuracies are findings, not gates")
@@ -1504,6 +1597,7 @@ def phase_eval_apps(models, tally, card):
         log(f"[eval] PhaseTimers (chunk {EVAL_CHUNK}, default settings) {line} [{card}]")
     phase_profile(lambda: sequence_eval.eval_sequence_known(tracker, seq),
                   "one eval_sequence_known call", "warp_pool_kernel", card, top=8)
+    return f32_known
 
 
 def phase_eval_cpu_vs_card(models):
@@ -1805,8 +1899,7 @@ def phase_resident(wp_mod, wi_mod, card):
     crops prepared on the card (one ``warp_pool`` launch a sequence), the
     corpus built, then ``run_resident_training`` at full width; its steps/s,
     loss, eval MPJPE, peak memory and one step under the profiler.  Returns
-    the pool launches and the prepared material's first rendered sequence's
-    kernel row."""
+    the pool launches, the corpus and the median step's ms."""
     import torch
     from umetrack_torch.apps.train import prepare_tracker_sequences
     from umetrack_torch.models import ModelConfig
@@ -1865,17 +1958,19 @@ def phase_resident(wp_mod, wi_mod, card):
         f"{prof['device_ms'] / step_ms:.3f} of the median step unprofiled ({step_ms:.1f} ms; the "
         f"profiler stretched the step to {prof['wall_ms']:.1f} ms); the warp kernels' share 0 (the "
         f"corpus is already cropped) [{card}]")
-    return counts[0]
+    return counts[0], corpus, step_ms
 
 
 def phase_train_app(wp_mod, wi_mod, card):
     """``apps/train.py::main`` on synthetic 120 x 160 batches (one
     ``warp_image_full`` launch a batch) and on a 480 x 640 idx/bin training
     tree (one ``warp_image_windowed`` launch a batch); the final
-    ``.msgpack`` loads back and its forward equals the trained model's.
-    Returns the launches and one train-app step's profile."""
+    ``.msgpack`` loads back and its forward equals the trained model's; then
+    the synthetic run in bf16 (the JSON config's ``model.compute_dtype``).
+    Returns the launches."""
     import torch
     from umetrack_torch.apps import train as app
+    from umetrack_torch.config import Config, to_json
     from umetrack_torch.models import ModelConfig, TemporalState, UmeTrackNet
     from umetrack_torch.utils.checkpoints import load_checkpoint
     from umetrack_torch.utils.synthetic import write_torchdata_corpus
@@ -1909,6 +2004,24 @@ def phase_train_app(wp_mod, wi_mod, card):
             f"loss {hist[0]:.4f} -> {hist[-1]:.4f}, one warp_image_full launch per batch; final.msgpack "
             f"reloaded: eval-mode forward equal bit for bit [{card}]")
 
+        # the same in bf16: the JSON config's model.compute_dtype says so
+        cfg16 = os.path.join(tmp, "bf16.json")
+        to_json(Config(model=ModelConfig(compute_dtype=BF16)), cfg16)
+        reset_launches(wp_mod, wi_mod)
+        t16, (state16, hist16) = wall_ms(lambda: app.main([
+            "--config", cfg16, "--synthetic", "--steps", str(APP_BF16_STEPS), "--batch-size", "32",
+            "--window", "8"]))
+        counts16 = launches(wp_mod, wi_mod)
+        check(counts16 == (0, APP_BF16_STEPS, 0),
+              f"train app, bf16: launches (pool, full, windowed) {counts16} in {APP_BF16_STEPS} batches")
+        check(state16.model.config.compute_dtype == BF16 and all(math.isfinite(v) for v in hist16)
+              and all(p.dtype == torch.float32 for p in state16.model.parameters()),
+              f"train app, bf16: {state16.model.config.compute_dtype}, loss {hist16}")
+        log(f"[bf16] train app main --config <model.compute_dtype bfloat16> --synthetic --steps "
+            f"{APP_BF16_STEPS} --batch-size 32 --window 8: {t16 / 1e3:.1f} s with start-up, loss "
+            f"{hist16[0]:.4f} -> {hist16[-1]:.4f}, parameters f32, one warp_image_full launch per batch [{card}]")
+        del state16
+
         root = os.path.join(tmp, "tree")
         t0 = time.perf_counter()
         write_torchdata_corpus(root, n_train=TREE_SEQS, n_test=0, t=8, v=TD_V, h=TD_H, w=TD_W,
@@ -1925,7 +2038,7 @@ def phase_train_app(wp_mod, wi_mod, card):
         log(f"[train-app] main --data <{TREE_SEQS} training sequences x 8 frames x {TD_V} views of "
             f"{TD_H} x {TD_W}, written in {write_s:.1f} s> --steps {tree_steps} --batch-size {TREE_BATCH} "
             f"--window 8: {t_tree / 1e3:.1f} s, one warp_image_windowed launch per batch [{card}]")
-    return counts_syn[1], counts_tree[2]
+    return counts_syn[1], counts_tree[2], counts16[1]
 
 
 def phase_train_kernels(wp_mod, wi_mod, card):
@@ -2006,6 +2119,215 @@ def phase_distill(wp_mod, wi_mod, card):
     return counts
 
 
+# ---- the bfloat16 compute dtype -----------------------------------------------
+
+
+def shares_text(prof):
+    return ", ".join(f"{k} {v:.3f}" for k, v in kernel_shares(prof).items())
+
+
+def phase_bf16_tracker(wp_mod, model32, model16, tally, rigs, seqs, hands, card):
+    """``track_sequences_batched`` at S=64 x T=16 in bf16 beside f32 with
+    cuDNN's TF32 on (PyTorch's default) and off, the same seeded weights:
+    one warp_pool launch a bf16 call (``tally``), finite outputs, ms per call
+    (median of 3, the three variants in turns), frames/s, peak memory, one
+    call of each under the profiler with its device time split by kind of
+    kernel; bf16 against f32 (TF32 off) at ``tests/test_bf16.py``'s bounds;
+    then ``eval_sequences_batched`` in bf16 (one launch a call)."""
+    import contextlib
+
+    import torch
+    from umetrack_torch.parallel.eval import eval_sequences_batched, make_batched_state
+    from umetrack_torch.tracker import HandTracker
+
+    from umetrack_torch.models.backbone import BatchNorm
+
+    # the model's BatchNorm on the card in bf16 (cuDNN's or PyTorch's kernel
+    # for a bf16 input against f32 parameters) is flax's rule written out:
+    # normalise x.float(), round once, within one bf16 ulp of the value
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((256, 32, 48, 48), generator=gen, device="cuda") * 3 + 1).to(torch.bfloat16)
+    bn = BatchNorm(32, torch.bfloat16).cuda().eval()
+    with torch.no_grad():
+        bn.running_mean.uniform_(-0.2, 0.2, generator=gen)
+        bn.running_var.uniform_(1.0, 2.0, generator=gen)
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        y = bn(x)
+    scale = torch.rsqrt(bn.running_var + 1e-5) * bn.weight
+    want = ((x.float() - bn.running_mean[:, None, None]) * scale[:, None, None] + bn.bias[:, None, None])
+    # in bf16 ulps of the value (rounding once is within half of one), with a
+    # floor of 1e-5 where the f32 arithmetic's own order (x * a + b against
+    # (x - mean) * a + bias) cancels to near zero
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
+    ulps = float(((y.float() - want).abs() / (ulp + 1e-5)).max())
+    check(y.dtype == torch.bfloat16 and ulps <= 1.0, f"bf16 BatchNorm: {ulps} ulps off flax's rule")
+    log(f"[bf16] BatchNorm eval on the card, a bf16 input [256, 32, 48, 48] against f32 stats: within "
+        f"{ulps:.3f} bf16 ulps (or 1e-5) of normalising x.float() and rounding once (<= 1)")
+
+    s, t = seqs.gt_confidences.shape[:2]
+    t32, t16 = HandTracker(model32, device="cuda"), HandTracker(model16, device="cuda")
+    variants = (("f32, TF32 on", lambda: t32.track_sequences_batched(rigs, seqs, hands), True),
+                ("bf16", lambda: tally(lambda: t16.track_sequences_batched(rigs, seqs, hands), 1,
+                                       "bf16 track_sequences_batched"), True),
+                ("f32, TF32 off", lambda: t32.track_sequences_batched(rigs, seqs, hands), False))
+    results, times, peaks = {}, {}, {}
+    for label, fn, tf32 in variants:
+        with contextlib.nullcontext() if tf32 else tf32_off():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            results[label] = fn()  # warms cuDNN up for this dtype and setting
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+    for _ in range(TRACK_CALLS):
+        for label, fn, tf32 in variants:
+            with contextlib.nullcontext() if tf32 else tf32_off():
+                times.setdefault(label, []).append(wall_ms(fn)[0])
+    res16, state16 = results["bf16"]
+    check(res16.joint_angles.dtype == res16.wrist_xfs.dtype == torch.float32, "bf16: outputs not f32")
+    check(state16.temporal.mem_features.dtype == torch.bfloat16, "bf16: the carry is not bf16")
+    check(bool(torch.isfinite(res16.joint_angles).all() & torch.isfinite(res16.wrist_xfs).all()
+               & torch.isfinite(state16.temporal.mem_features.float()).all()), "bf16: non-finite output")
+    for label in times:
+        ms = sorted(times[label])[len(times[label]) // 2]
+        log(f"[bf16] track_sequences_batched S={s} T={t} full ModelConfig() {label}: {ms:.1f} ms/call "
+            f"median of {TRACK_CALLS} ({', '.join(f'{m:.1f}' for m in times[label])}; in turns with the "
+            f"other two), {s * t / ms * 1e3:.1f} frames/s, peak mem {peaks[label]:.2f} GiB [{card}]")
+
+    # bf16 against f32 with TF32 off, the same weights: tests/test_bf16.py's bounds
+    ref = results["f32, TF32 off"][0]
+    v = ref.valid
+    check(bool((res16.valid == v).all()), "bf16 against f32: valid masks differ")
+    da = float((res16.joint_angles[v] - ref.joint_angles[v]).abs().max())
+    dw = float((res16.wrist_xfs[v][..., :3, 3] - ref.wrist_xfs[v][..., :3, 3]).abs().max())
+    r = res16.wrist_xfs[v][..., :3, :3]
+    ortho = float((r @ r.transpose(-1, -2) - torch.eye(3, device="cuda")).abs().max())
+    check(da <= BF16_F32_ANGLE_TOL and ortho <= BF16_ORTHO_TOL,
+          f"bf16 against f32: {da} rad, orthonormality {ortho}")
+    log(f"[bf16] bf16 against f32 (TF32 off), same seeded weights, {int(v.sum())} valid hands: angles "
+        f"{da:.3e} rad (<= {BF16_F32_ANGLE_TOL}), wrist {dw:.3e} mm, rotations orthonormal within "
+        f"{ortho:.3e} (<= {BF16_ORTHO_TOL})")
+
+    for label, fn, tf32 in variants:
+        with contextlib.nullcontext() if tf32 else tf32_off():
+            prof = phase_profile(fn, f"one track_sequences_batched call, {label}", "warp_pool_kernel",
+                                 card, top=8)
+        log(f"[bf16] {label}: device time by kind: {shares_text(prof)}")
+
+    # the batched eval in bf16
+    known = lambda: eval_sequences_batched(model16, t16.config, rigs, seqs,
+                                           make_batched_state(model16, s, "cuda"), hands, device="cuda")
+    per_seq, n_valid, mean = tally(known, 1, "bf16 eval_sequences_batched")
+    check(bool(torch.isfinite(per_seq).all() & (n_valid > 0).all()), "bf16 eval: non-finite errors")
+    ms = sorted(wall_ms(lambda: tally(known, 1, "bf16 eval_sequences_batched"))[0]
+                for _ in range(3))
+    log(f"[bf16] eval_sequences_batched S={s} T={t} bf16: one warp_pool launch a call, global mean "
+        f"{float(mean):.2f} mm, {ms[1]:.1f} ms/call median of 3 ({', '.join(f'{m:.1f}' for m in ms)}), "
+        f"{s * t / ms[1] * 1e3:.1f} frames/s [{card}]")
+
+
+def phase_bf16_streaming(wp_mod, models, tally, card):
+    """bf16 ``track_frame`` looped over the rendered 64-frame sequence
+    against ``track_sequence`` for each of ``models`` (name, bf16 model,
+    bounds); then the card's bf16 tracker against the CPU's at S=2 x T=4."""
+    import torch
+    from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.tracker import HandTracker
+    from umetrack_torch.tracker.types import FrameResult
+    from umetrack_torch.utils.synthetic import make_sequences
+
+    _, _, (rig, seq, hand) = rendered_sequence(EVAL_FRAMES, 2_000_001, "cuda")
+    frames = [seq.map(lambda a, i=i: a[i]) for i in range(EVAL_FRAMES)]
+    for name, model, bounds in models:
+        tracker = HandTracker(model, device="cuda")
+
+        def loop():
+            state, outs = tracker.init_state(), []
+            for obs in frames:
+                res, state = tracker.track_frame(rig, obs, state, hand)
+                outs.append(res)
+            check(state.temporal.mem_features.dtype == torch.bfloat16, "track_frame: the carry is not bf16")
+            return FrameResult(**{k: torch.stack([getattr(o, k) for o in outs])
+                                  for k in ("joint_angles", "wrist_xfs", "valid", "n_views")})
+
+        with tf32_off():
+            streamed = tally(loop, EVAL_FRAMES, f"bf16, {name}: {EVAL_FRAMES} track_frame calls")
+            ref, _ = tally(lambda: tracker.track_sequence(rig, seq, hand), 1,
+                           f"bf16, {name}: track_sequence")
+        da, dw, _ = result_diff(streamed, ref, f"bf16 track_frame loop, {name}", bounds)
+        loop_ms, _ = wall_ms(lambda: tally(loop, EVAL_FRAMES, "bf16 track_frame loop"))
+        log(f"[bf16] {name}: {EVAL_FRAMES} x track_frame against one track_sequence call in bf16 "
+            f"(TF32 off): masks equal ({int(ref.valid.sum())}/{ref.valid.numel()} valid), angles {da:.3e} "
+            f"rad (<= {bounds.angle}), wrist {dw:.3e} mm (<= {bounds.mm}); the loop {loop_ms:.1f} ms, "
+            f"{EVAL_FRAMES / loop_ms * 1e3:.1f} frames/s [{card}]")
+
+    rigs, seqs, hands = make_sequences(S_SMALL, T_SMALL, seed=100, device="cpu")
+    cfg16 = ModelConfig(compute_dtype=BF16)
+    with tf32_off():
+        res_cpu, _ = HandTracker(make_model(cfg16, seed=0, device="cpu"), device="cpu") \
+            .track_sequences_batched(rigs, seqs, hands)
+        res_gpu, _ = tally(lambda: HandTracker(models[0][1], device="cuda").track_sequences_batched(
+            rigs.to("cuda"), seqs.to("cuda"), hands.to("cuda")), 1, "bf16 card against CPU")
+    da, dw = track_diff(res_cpu, res_gpu.to("cpu"))
+    check(da <= BF16_CPU.angle and dw <= BF16_CPU.mm, f"bf16 card against CPU: {da} rad, {dw} mm")
+    log(f"[bf16] card against CPU, both bf16, S={S_SMALL} T={T_SMALL}, seeded weights, TF32 off: valid "
+        f"equal, angles {da:.3e} rad (<= {BF16_CPU.angle}), wrist {dw:.3e} mm (<= {BF16_CPU.mm})")
+
+
+def phase_bf16_eval_app(tally, f32_summary, card):
+    """The known-skeleton eval app's ``main`` with ``--dtype bfloat16`` and
+    the checkpoint on the generated sequences: its MPJPE beside f32's (a
+    finding, not a gate)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from umetrack_torch.apps import load_eval, run_eval_known_skeleton
+
+    with tempfile.TemporaryDirectory(prefix="umetrack_eval_bf16_") as root:
+        out_dir = os.path.join(root, "eval_results_known_skeleton", "real", "separate_hand")
+        ms, errors = tally(lambda: wall_ms(lambda: run_eval_known_skeleton.main([
+            "--output-dir", out_dir, "--synthetic", str(EVAL_SEQS), "--synthetic-frames", str(EVAL_FRAMES),
+            "--checkpoint", CHECKPOINT, "--device", "cuda", "--dtype", BF16])),
+            EVAL_SEQS, "bf16 run_eval_known_skeleton.main")
+        check(len(errors) == EVAL_SEQS and bool(np.isfinite(errors).all()), f"bf16 known app: {errors}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            summ = load_eval.main(["--results-root", root])["known_skeleton/separate_hand"]
+    log(f"[bf16] run_eval_known_skeleton.main --dtype bfloat16 with the checkpoint on {EVAL_SEQS} "
+        f"generated sequences: {ms / 1e3:.2f} s, MPJPE {summ['mpjpe_mm']:.3f} mm (f32: "
+        f"{f32_summary['mpjpe_mm']:.3f}), PCK-AUC {summ['pck_auc']:.4f} (f32: {f32_summary['pck_auc']:.4f}), "
+        f"per-sequence errors {', '.join(f'{e:.2f}' for e in errors)} mm; one warp_pool launch a "
+        f"sequence (a finding, not a gate) [{card}]")
+
+
+def phase_bf16_resident(corpus, f32_step_ms, card):
+    """``run_resident_training`` with a bf16 model on the resident corpus,
+    32 hand rows x K=8: loss finite and falling, ms per step beside f32's."""
+    import torch
+    from umetrack_torch.models import ModelConfig
+    from umetrack_torch.parallel import init_train_model, resident
+
+    model = init_train_model(ModelConfig(compute_dtype=BF16), seed=0, device="cuda")
+    marks = [time.perf_counter()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, hist = resident.run_resident_training(
+        model, corpus, num_steps=RES_BF16_STEPS, seqs_per_batch=16, window=8, learning_rate=3e-4,
+        log_every=1, eval_every=RES_BF16_STEPS, augment=True, seed=0,
+        log_fn=lambda m: marks.append(time.perf_counter()),
+    )
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(hist) == RES_BF16_STEPS and all(math.isfinite(h["loss"]) for h in hist), "bf16: non-finite loss")
+    check(hist[-1]["loss"] < hist[0]["loss"], f"bf16: loss did not fall: {hist[0]['loss']} -> {hist[-1]['loss']}")
+    check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in model.parameters()),
+          "bf16 training: parameters not f32 or not finite")
+    steps = sorted(b - a for a, b in zip(marks[4:-2], marks[5:-1]))
+    step_ms = steps[len(steps) // 2] * 1e3
+    log(f"[bf16] run_resident_training bf16, 32 hand rows x K=8, {RES_BF16_STEPS} steps: loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, eval MPJPE {hist[-1]['eval_mpjpe_mm']:.1f} mm; "
+        f"{step_ms:.1f} ms/step median of steps 4-{RES_BF16_STEPS - 2} (f32, TF32 on, above: "
+        f"{f32_step_ms:.1f}), peak mem {peak:.2f} GiB; parameters f32 [{card}]")
+
+
 def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
     """``launches``: the kernel's launches over the main paths' runs, each
     path counted from 0 (``launches_by_path`` says which path made how many).
@@ -2053,10 +2375,17 @@ def main():
     tracker = HandTracker(model_cuda, device="cuda")
     phase_profile(lambda: tracker.track_sequences_batched(rigs, seqs, hands),
                   "one track_sequences_batched call", "warp_pool_kernel", card)
+
+    # the bf16 paths: ``bf16_tally`` sets the pool kernel's counter to 0 just
+    # before each of their entry-point calls and reads it just after
+    model16 = make_model(ModelConfig(compute_dtype=BF16), seed=0, device="cuda")
+    bf16_tally = LaunchTally(wp_mod.warp_pool)
+    phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
+    bf16_tracker_launches = bf16_tally.total
     del rigs, seqs, hands
     torch.cuda.empty_cache()
 
-    win_launches, full_launches = phase_torchdata_slice(wp_mod, wi_mod, model_cuda, card)
+    win_launches, full_launches, win_bf16 = phase_torchdata_slice(wp_mod, wi_mod, model_cuda, card)
 
     model_cpu = make_model(ModelConfig(), seed=0, device="cpu")
     phase_cpu_vs_card(model_cpu, model_cuda, wi_mod)
@@ -2080,12 +2409,22 @@ def main():
         f"{batch_tally.total}")
     del rigs, seqs, hands, unsharded
     torch.cuda.empty_cache()
-    phase_eval_apps(models, tally, card)
+    f32_known = phase_eval_apps(models, tally, card)
     log(f"[eval] warp_pool launches over the evaluation path's entry-point calls: {tally.total}")
     phase_eval_cpu_vs_card([("seeded weights", model_cpu, model_cuda, STRICT),
                             ("checkpoint", ckpt_cpu, ckpt_cuda, TRAINED_CPU)])
 
-    del ckpt_cpu, ckpt_cuda, models, model_cpu, model_cuda, tracker
+    # the raw_data evaluation in bf16: the checkpoint's weights in a bf16 model
+    ckpt16 = make_model(ModelConfig(compute_dtype=BF16), device="cuda")
+    ckpt16.load_state_dict(ckpt_cuda.state_dict())
+    eval16_tally = LaunchTally(wp_mod.warp_pool)
+    phase_bf16_streaming(wp_mod, [("seeded weights", model16, BF16_LOOP),
+                                  ("checkpoint", ckpt16, BF16_LOOP_TRAINED)], eval16_tally, card)
+    phase_bf16_eval_app(eval16_tally, f32_known, card)
+    log(f"[bf16] warp_pool launches over the bf16 paths' entry-point calls: tracker and batched eval "
+        f"{bf16_tracker_launches}, raw_data eval {eval16_tally.total}")
+
+    del ckpt_cpu, ckpt_cuda, ckpt16, models, model_cpu, model_cuda, model16, tracker
     torch.cuda.empty_cache()
 
     # the training slice: each entry-point call counted from 0 (the
@@ -2094,9 +2433,11 @@ def main():
     t_train = time.perf_counter()
     phase_train_cpu_vs_card()
     train_rows = phase_train_kernels(wp_mod, wi_mod, card)
-    prep_launches = phase_resident(wp_mod, wi_mod, card)
+    prep_launches, corpus, f32_step_ms = phase_resident(wp_mod, wi_mod, card)
+    phase_bf16_resident(corpus, f32_step_ms, card)
+    del corpus
     torch.cuda.empty_cache()
-    syn_launches, tree_launches = phase_train_app(wp_mod, wi_mod, card)
+    syn_launches, tree_launches, syn_bf16 = phase_train_app(wp_mod, wi_mod, card)
     distill_pool, distill_full, _ = phase_distill(wp_mod, wi_mod, card)
     log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
 
@@ -2106,16 +2447,19 @@ def main():
                      "umetrack_tpu/ops/pallas_resample.py:243",
                      {"tracker": pool_launches, "raw_data eval": tally.total,
                       "batched eval": batch_tally.total,
-                      "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool},
+                      "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool,
+                      "bf16 tracker and batched eval": bf16_tracker_launches,
+                      "bf16 raw_data eval": eval16_tally.total},
                      pool_kern, eval_shapes + [train_rows["warp_pool"]]),
         kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:174",
-                     {"torch_data": win_launches, "train app 480 x 640 tree": tree_launches},
+                     {"torch_data": win_launches, "train app 480 x 640 tree": tree_launches,
+                      "bf16 torch_data": win_bf16},
                      image_kern["warp_image_windowed"], [train_rows["warp_image_windowed"]]),
         kernel_entry("warp_image_full", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:68",
                      {"torch_data 120 x 160": full_launches, "train app synthetic": syn_launches,
-                      "distill": distill_full},
+                      "distill": distill_full, "bf16 train app synthetic": syn_bf16},
                      image_kern["warp_image_full"], [train_rows["warp_image_full"]]),
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from umetrack_tpu.apps import load_eval as jload_eval
 from umetrack_torch.apps import (
@@ -128,12 +129,17 @@ def test_load_model_cli_and_tracker_config(tmp_path):
 
     model = load_model_cli(CKPT, "auto", "cpu")
     assert not model.training and next(model.parameters()).device.type == "cpu"
+    assert model.config.compute_dtype == "float32"  # 'auto' is f32 on every device
     seeded = load_model_cli(None, "float32", "cpu")
     assert not all(
         (a == b).all() for a, b in zip(model.state_dict().values(), seeded.state_dict().values())
     )
-    with pytest.raises(ValueError, match="float32"):
-        load_model_cli(CKPT, "bfloat16", "cpu")
+    bf16 = load_model_cli(CKPT, "bfloat16", "cpu")
+    assert bf16.config.compute_dtype == "bfloat16"
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), bf16.state_dict().values()))
+    with pytest.raises(ValueError, match="float16"):
+        load_model_cli(CKPT, "float16", "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         load_model_cli(CKPT)  # no card here, and no silent CPU run
     cfg = tracker_config_from_args(argparse.Namespace(sampler="plain"), enable_memory=False)

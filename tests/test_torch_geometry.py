@@ -108,3 +108,74 @@ def test_crop_fit_degenerate_is_invalid_and_finite():
     assert not bool(ours.valid) and not bool(ref.valid)
     assert torch.isfinite(ours.intrinsics_matrix()).all()
     assert torch.isfinite(ours.T_world_from_eye).all()
+
+
+# tests/test_geometry.py's camera schemas, copied
+FISHEYE_JSON = {
+    "ImageSizeX": 640, "ImageSizeY": 480, "DistortionModel": "FishEye62",
+    "fx": 275.0, "fy": 275.0, "cx": 319.5, "cy": 239.5,
+    "k1": 0.35, "k2": 0.27, "k3": -0.5, "k4": 0.4, "p1": 1e-4, "p2": -2e-4,
+    "k5": 0.0, "k6": 0.0,
+}
+PINHOLE_JSON = {
+    "ImageSizeX": 96, "ImageSizeY": 96, "DistortionModel": "PinholePlane",
+    "fx": 120.0, "fy": 120.0, "cx": 47.5, "cy": 47.5,
+}
+
+
+@pytest.mark.parametrize("schema", ["fisheye", "pinhole", "nested"])
+def test_camera_from_json_matches_jax(schema):
+    """The same camera type and fields as the JAX package builds, and the
+    same projection of world points through the shared rigid helpers."""
+    js = {"fisheye": FISHEYE_JSON, "pinhole": PINHOLE_JSON, "nested": {"Camera": PINHOLE_JSON}}[schema]
+    rng = np.random.default_rng(7)
+    t_wfe = _rigid(rng, 1)[0]
+    t_wfe[:3, 3] *= 0.1
+    cam = cameras.camera_from_json(js, t_wfe, device="cpu")
+    jcam = jcams.camera_from_json(js, t_wfe)
+    assert type(cam).__name__ == type(jcam).__name__
+    for name in ("fx", "fy", "cx", "cy", "width", "height", "T_world_from_eye", "f", "c"):
+        _close(getattr(cam, name), getattr(jcam, name))
+    if schema == "fisheye":
+        _close(cam.coeffs, jcam.coeffs)
+    pts = rng.uniform(-50, 50, (40, 3)).astype(np.float32) + cam.eye_to_world(
+        torch.tensor([0.0, 0.0, 300.0])).numpy()
+    _close(cam.world_to_eye(_t(pts)), jcam.world_to_eye(jnp.asarray(pts)), atol=1e-3)
+    _close(cam.eye_to_world(_t(pts)), jcam.eye_to_world(jnp.asarray(pts)), atol=1e-3)
+    _close(cam.world_to_window(_t(pts)), jcam.world_to_window(jnp.asarray(pts)), atol=2e-2)
+
+
+def test_camera_from_json_rejects_other_models():
+    with pytest.raises(ValueError, match="Kannala"):
+        cameras.camera_from_json({**PINHOLE_JSON, "DistortionModel": "Kannala"}, device="cpu")
+
+
+def test_pinhole_camera_and_unprojections_match_jax():
+    """``PinholeCamera`` (window <-> eye, the intrinsics matrix) and the
+    perspective and arctan (un)projections against the JAX functions, and
+    their round trips."""
+    rng = np.random.default_rng(8)
+    cam = cameras.camera_from_json(PINHOLE_JSON, device="cpu")
+    jcam = jcams.camera_from_json(PINHOLE_JSON)
+    assert isinstance(cam, cameras.PinholeCamera)
+    _close(cam.uv_to_window_matrix(), jcam.uv_to_window_matrix())
+    _close(cam.uv_to_window_matrix(), np.asarray([[120.0, 0, 47.5], [0, 120.0, 47.5], [0, 0, 1]]))
+    w = rng.uniform(0, 95, (40, 2)).astype(np.float32)
+    eye = cam.window_to_eye(_t(w))
+    _close(eye, jcam.window_to_eye(jnp.asarray(w)))
+    _close(torch.linalg.vector_norm(eye, dim=-1), np.ones(40, np.float32))
+    _close(cam.eye_to_window(eye), w, atol=1e-3)  # project o unproject == id
+    _close(cam.eye_to_window(eye * 250.0), jcam.eye_to_window(jnp.asarray(eye.numpy() * 250.0)), atol=1e-3)
+
+    p = rng.uniform(-2, 2, (64, 2)).astype(np.float32)
+    v = cameras.perspective_unproject(_t(p))
+    _close(v, jcams.perspective_unproject(jnp.asarray(p)))
+    _close(cameras.perspective_project(v), p, atol=1e-5)
+    _close(cameras.perspective_project(v * 3.0), jcams.perspective_project(jnp.asarray(v.numpy() * 3.0)))
+
+    uv = rng.uniform(-1.4, 1.4, (64, 2)).astype(np.float32)
+    uv[0] = 0.0  # on-axis: sinc(0) = 1
+    rays = cameras.arctan_unproject(_t(uv))
+    _close(rays, jcams.arctan_unproject(jnp.asarray(uv)))
+    _close(torch.linalg.vector_norm(rays, dim=-1), np.ones(64, np.float32))
+    _close(cameras.arctan_project(rays), uv, atol=1e-5)  # arctan o unproject == id

@@ -14,7 +14,10 @@ from typing import Optional, Sequence, Tuple
 
 from .._device import resolve_device
 from ..models import ModelConfig, UmeTrackNet, make_model
+from ..models.config import COMPUTE_DTYPES
 from ..ops.resample import SAMPLERS
+
+DTYPES = ("auto",) + tuple(COMPUTE_DTYPES)
 
 
 def add_runtime_flags(
@@ -24,8 +27,9 @@ def add_runtime_flags(
     samplers for the torch_data app (the default), the tracker's for the
     eval apps (``tracker.types.SAMPLERS``)."""
     parser.add_argument(
-        "--dtype", choices=["auto", "float32"], default="auto",
-        help="model compute dtype; only float32 is ported, and 'auto' takes it",
+        "--dtype", choices=DTYPES, default="auto",
+        help="model compute dtype (parameters stay float32); 'auto' = float32 on "
+        "every device, the dtype the port's parity is held at",
     )
     parser.add_argument(
         "--sampler", choices=list(samplers), default=None,
@@ -76,6 +80,21 @@ def setup_runtime(args) -> Tuple[int, int]:
     return args.rank, args.world_size
 
 
+def resolve_dtype(dtype: str, device=None) -> str:
+    """The compute dtype that ``--dtype`` names: ``float32`` or ``bfloat16``
+    as given, and ``auto`` -> ``float32`` on every device, CUDA included.
+    The JAX package maps ``auto`` to bfloat16 on its accelerator; the port
+    keeps float32, the dtype at which it is held to the JAX package and the
+    card to the CPU, and runs bfloat16 when asked (``--dtype bfloat16``).
+    The answer is the same for every ``device``, the CPU and CUDA alike.
+    Any other name raises."""
+    if dtype == "auto":
+        return "float32"
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype {dtype!r}: use one of {DTYPES}")
+    return dtype
+
+
 def tracker_config_from_args(args, **overrides):
     """TrackerConfig with the CLI's sampler selection applied."""
     from ..tracker import TrackerConfig
@@ -88,14 +107,13 @@ def tracker_config_from_args(args, **overrides):
 def load_model_cli(
     checkpoint: Optional[str], dtype: str = "auto", device=None, seed: int = 0
 ) -> UmeTrackNet:
-    """The model at the full width of ``ModelConfig()`` on ``device``, in
-    eval mode, with the weights of ``checkpoint`` (a flax ``.msgpack`` file
-    or a ``.torch`` state dict of the original model) or, without one,
-    seeded random weights."""
-    if dtype not in ("auto", "float32"):
-        raise ValueError(f"dtype {dtype!r}: only float32 is ported")
+    """The model at the full width of ``ModelConfig()`` in the compute dtype
+    ``dtype`` resolves to (:func:`resolve_dtype`; parameters stay f32) on
+    ``device``, in eval mode, with the weights of ``checkpoint`` (a flax
+    ``.msgpack`` file or a ``.torch`` state dict of the original model) or,
+    without one, seeded random weights."""
     device = resolve_device(device)
-    config = ModelConfig()
+    config = ModelConfig(compute_dtype=resolve_dtype(dtype, device))
     if not checkpoint:
         return make_model(config, seed=seed, device=device)
     from ..utils.checkpoints import load_checkpoint

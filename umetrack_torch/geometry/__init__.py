@@ -1,5 +1,5 @@
 from . import affine, cameras, crop
-from .cameras import Fisheye62Camera
+from .cameras import Fisheye62Camera, PinholeCamera, camera_from_json
 from .crop import CropCamera, gen_crop_camera_from_points
 
 __all__ = [
@@ -7,6 +7,8 @@ __all__ = [
     "cameras",
     "crop",
     "Fisheye62Camera",
+    "PinholeCamera",
+    "camera_from_json",
     "CropCamera",
     "gen_crop_camera_from_points",
 ]

@@ -7,6 +7,14 @@ image-feature channels.  Submodule names follow the flax tree
 ``models/convert.py`` maps the JAX weights by a plain walk.  Every
 normalisation layer of the model is :class:`BatchNorm`, whose train mode
 is flax's.
+
+The compute dtype (``ModelConfig.compute_dtype``) follows flax layer by
+layer with explicit casts, never ``torch.autocast`` (whose op lists differ
+between CPU and CUDA, and which leaves BatchNorm's output in f32):
+parameters and buffers stay f32; :class:`Conv` and :class:`Dense` cast
+their input, weight and bias to the compute dtype and compute in it;
+:class:`BatchNorm` normalises in f32 and rounds once to the compute dtype;
+ReLU, max-pool and the residual add run in the compute dtype.
 """
 from __future__ import annotations
 
@@ -21,6 +29,35 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: running <- 0.9 * running + 0.1 * batch
 
 
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype``, as flax's ``nn.Conv(
+    dtype=...)`` does: the input, the f32 weight and the f32 bias are cast
+    to it (the weight stays an f32 ``Parameter``; its gradient reaches it
+    through the cast) and the output is in it."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(d)
+        return self._conv_forward(x.to(d), self.weight.to(d), bias)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype``, as flax's ``nn.Dense(
+    dtype=...)`` does (see :class:`Conv`)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode is flax's ``nn.BatchNorm(
     use_running_average=not train, momentum=0.9, epsilon=1e-5)``: the batch
@@ -31,20 +68,31 @@ class BatchNorm(nn.BatchNorm2d):
 
     Under a ``torch.distributed`` process group (of any size) train mode
     normalises with the statistics of the GLOBAL batch, as the JAX train
-    step does over its mesh: see :meth:`_synchronised`."""
+    step does over its mesh: see :meth:`_synchronised`.
 
-    def __init__(self, num_features: int):
+    The statistics, the scale and the bias are f32 whatever the input's
+    dtype, and the normalisation runs in f32 (PyTorch's ``batch_norm``
+    computes a bf16 input against f32 parameters in f32): the output is
+    rounded once, to ``compute_dtype``, as flax's ``nn.BatchNorm(dtype=
+    ...)`` rounds it.  In train mode the batch statistics are reduced in
+    f32, as flax's ``force_float32_reductions`` does."""
+
+    def __init__(self, num_features: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
-        if dist.is_available() and dist.is_initialized():
-            return self._synchronised(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self._update_running_stats(mean, var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+        elif dist.is_available() and dist.is_initialized():
+            y = self._synchronised(x)
+        else:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                self._update_running_stats(mean, var)
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return y.to(self.compute_dtype)
 
     def _update_running_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
@@ -62,6 +110,7 @@ class BatchNorm(nn.BatchNorm2d):
         from torch.distributed.nn.functional import all_reduce
 
         dims = (0, 2, 3)
+        x = x.float()
         count = torch.full_like(self.running_mean, x.numel() // x.shape[1])
         moments = all_reduce(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
         mean = moments[0] / moments[2]
@@ -76,15 +125,15 @@ class BasicBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN + residual (with 1x1 downsample) -> ReLU."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 use_downsample: bool = False):
+                 use_downsample: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, padding=1, bias=False)
-        self.bn1 = BatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, padding=1, bias=False)
-        self.bn2 = BatchNorm(planes)
+        self.conv1 = Conv(in_planes, planes, 3, stride, padding=1, bias=False, compute_dtype=dtype)
+        self.bn1 = BatchNorm(planes, dtype)
+        self.conv2 = Conv(planes, planes, 3, 1, padding=1, bias=False, compute_dtype=dtype)
+        self.bn2 = BatchNorm(planes, dtype)
         if use_downsample:
-            self.downsample_conv = nn.Conv2d(in_planes, planes, 1, stride, bias=False)
-            self.downsample_bn = BatchNorm(planes)
+            self.downsample_conv = Conv(in_planes, planes, 1, stride, bias=False, compute_dtype=dtype)
+            self.downsample_bn = BatchNorm(planes, dtype)
         self.use_downsample = use_downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -101,8 +150,9 @@ class ResNetBackbone(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.stem_conv = nn.Conv2d(1, cfg.start_planes, 3, padding=1, bias=True)
-        self.stem_bn = BatchNorm(cfg.start_planes)
+        dtype = cfg.torch_dtype
+        self.stem_conv = Conv(1, cfg.start_planes, 3, padding=1, bias=True, compute_dtype=dtype)
+        self.stem_bn = BatchNorm(cfg.start_planes, dtype)
         self.blocks = []
         in_planes = cfg.start_planes
         for si, (n_blocks, stride) in enumerate(zip(cfg.backbone_blocks, cfg.backbone_strides)):
@@ -113,10 +163,12 @@ class ResNetBackbone(nn.Module):
                 self.add_module(name, BasicBlock(
                     in_planes, planes, stride=stride if first else 1,
                     use_downsample=first and (stride != 1 or cfg.stage_in_planes[si] != planes),
+                    dtype=dtype,
                 ))
                 self.blocks.append(name)
                 in_planes = planes
-        self.proj_conv = nn.Conv2d(in_planes, cfg.n_image_feature_channels, 1, bias=True)
+        self.proj_conv = Conv(in_planes, cfg.n_image_feature_channels, 1, bias=True,
+                              compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.stem_bn(self.stem_conv(x)))

@@ -3,6 +3,8 @@ cell, the skeleton encoder and the pose-regression head.
 
 Counterpart of ``umetrack_tpu/models/components.py``; submodule names
 follow the flax tree (``fusion.conv0``, ``regressor_k.block1.bn2``, ...).
+Each module computes in its ``dtype`` (``models/backbone.py`` says how);
+the regressor's decode runs in f32 whatever it is.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._tree import TensorTree
-from .backbone import BasicBlock, BatchNorm
+from .backbone import BasicBlock, BatchNorm, Conv, Dense
 from .config import ModelConfig
 from .procrustes import procrustes_align
 
@@ -24,14 +26,15 @@ class MultiViewFusion(nn.Module):
     """1x1-conv ladder stepping channels nc_in -> nc_out linearly, then one
     extra 1x1 conv so features aren't all-positive after the final ReLU."""
 
-    def __init__(self, nc_in: int, nc_out: int, n_blocks: int):
+    def __init__(self, nc_in: int, nc_out: int, n_blocks: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         channels = [int(c) for c in np.linspace(nc_in, nc_out, n_blocks + 1)]
         self.n_blocks = n_blocks
         for i in range(n_blocks):
-            self.add_module(f"conv{i}", nn.Conv2d(channels[i], channels[i + 1], 1))
-            self.add_module(f"bn{i}", BatchNorm(channels[i + 1]))
-        self.conv_out = nn.Conv2d(channels[-1], nc_out, 1)
+            self.add_module(f"conv{i}", Conv(channels[i], channels[i + 1], 1, compute_dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(channels[i + 1], dtype))
+        self.conv_out = Conv(channels[-1], nc_out, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_blocks):
@@ -43,11 +46,11 @@ class TemporalConvStack(nn.Module):
     """The conv-RNN cell body: n 1x1 convs at constant width, ReLU between
     (not after the last).  Input = concat([memory, image features])."""
 
-    def __init__(self, n_channels: int, n_blocks: int):
+    def __init__(self, n_channels: int, n_blocks: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_blocks = n_blocks
         for i in range(n_blocks):
-            self.add_module(f"conv{i}", nn.Conv2d(n_channels, n_channels, 1))
+            self.add_module(f"conv{i}", Conv(n_channels, n_channels, 1, compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_blocks):
@@ -62,13 +65,13 @@ class SkeletonEncoder(nn.Module):
     map viewed as (C, H, W), then BN + ReLU."""
 
     def __init__(self, out_channels: int, feature_map_size: Tuple[int, int],
-                 n_joints: int = 22):
+                 n_joints: int = 22, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_channels = out_channels
         self.feature_map_size = tuple(feature_map_size)
         h, w = self.feature_map_size
-        self.linear = nn.Linear(n_joints * 6, out_channels * h * w)
-        self.bn = BatchNorm(out_channels)
+        self.linear = Dense(n_joints * 6, out_channels * h * w, compute_dtype=dtype)
+        self.bn = BatchNorm(out_channels, dtype)
 
     def forward(self, joint_rotation_axes: torch.Tensor,
                 joint_rest_positions: torch.Tensor) -> torch.Tensor:
@@ -120,16 +123,18 @@ class RegressorOutput(TensorTree):
 class PoseRegressor(nn.Module):
     """n BasicBlocks + 1x1 conv to output dims + global average pool, then
     per-range decoders (angles, Procrustes wrist, exp scale, softplus
-    sigmas).  The decode runs in float32."""
+    sigmas).  The blocks, the output conv and the pool run in the compute
+    dtype; the decode runs in float32."""
 
     def __init__(self, cfg: ModelConfig, n_in: int, predict_skel_scale: bool):
         super().__init__()
         self.cfg = cfg
         self.predict_skel_scale = predict_skel_scale
         self.ranges, n_out = output_layout(cfg.n_wrist_rigid_pts, predict_skel_scale)
+        dtype = cfg.torch_dtype
         for i in range(cfg.n_regression_blocks):
-            self.add_module(f"block{i}", BasicBlock(n_in, n_in))
-        self.conv_out = nn.Conv2d(n_in, n_out, 1)
+            self.add_module(f"block{i}", BasicBlock(n_in, n_in, dtype=dtype))
+        self.conv_out = Conv(n_in, n_out, 1, compute_dtype=dtype)
         self.register_buffer(
             "rigid_points", torch.from_numpy(gen_rigid_points(cfg.n_wrist_rigid_pts)),
             persistent=False,

@@ -1,14 +1,20 @@
 """Typed model configuration.
 
-A verbatim copy of ``umetrack_tpu/models/config.py``: the defaults of the
-original UmeTrack ``ModelOpts`` (the published checkpoint's architecture,
-arch string ``"resnet_layers_2352-f32"``).  The port keeps its own copy so
-it never imports the JAX package.
+A copy of ``umetrack_tpu/models/config.py``: the defaults of the original
+UmeTrack ``ModelOpts`` (the published checkpoint's architecture, arch
+string ``"resnet_layers_2352-f32"``).  The port keeps its own copy so it
+never imports the JAX package; it adds the check of ``compute_dtype`` and
+:attr:`ModelConfig.torch_dtype`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+import torch
+
+# The compute dtypes the model runs in; parameters stay float32 in both.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +46,20 @@ class ModelConfig:
     # Wrist decode: "quat" (Horn power iteration, fast on TPU) or "svd"
     procrustes_method: str = "quat"
 
-    # Dtypes: params live in f32; compute dtype can be bf16 on TPU.
+    # Dtypes: params live in f32; convolutions, dense layers, BN outputs
+    # and the memory carry are in the compute dtype (a key of COMPUTE_DTYPES).
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype {self.compute_dtype!r}: use one of {sorted(COMPUTE_DTYPES)}"
+            )
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """``compute_dtype`` as a ``torch.dtype``."""
+        return COMPUTE_DTYPES[self.compute_dtype]
 
     @property
     def feature_map_size(self) -> Tuple[int, int]:

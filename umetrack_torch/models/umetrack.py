@@ -7,6 +7,12 @@ conv-RNN memory is an explicit :class:`TemporalState`.
 
 Units: images in [0, 1]; extrinsics world->eye in meters; outputs in
 meters.  Feature maps and the memory are ``[B, C, h, w]``.
+
+Dtypes follow the JAX model's: the layers compute in
+``ModelConfig.compute_dtype`` (``models/backbone.py``), an FTL applies an
+f32 transform and so returns f32 features, the memory carry is in the
+compute dtype, ``prev_extrinsics`` and the motion geometry are f32, and
+every decoded output is f32.
 """
 from __future__ import annotations
 
@@ -70,11 +76,13 @@ class TemporalState(TensorTree):
 
     @staticmethod
     def zeros(batch: int, config: ModelConfig, device="cpu") -> "TemporalState":
-        """Zero carry; ``prev_extrinsics`` is identity and stays float32."""
+        """Zero carry: ``mem_features`` in the model's compute dtype, the dtype
+        the cell emits it in; ``prev_extrinsics`` is identity and stays
+        float32 (pose precision)."""
         h, w = config.feature_map_size
         return TemporalState(
             mem_features=torch.zeros(
-                (batch, config.n_memory_channels, h, w), dtype=torch.float32, device=device
+                (batch, config.n_memory_channels, h, w), dtype=config.torch_dtype, device=device
             ),
             prev_extrinsics=torch.eye(4, dtype=torch.float32, device=device)
             .expand(batch, 4, 4).contiguous(),
@@ -117,22 +125,22 @@ def _wrist_to_world(
 class UmeTrackNet(nn.Module):
     """Feature extractor + temporal cell + skeleton encoder + two regressors
     (``regressor_k`` with a known skeleton, ``regressor_u`` predicting the
-    skeleton scale).  Only float32 compute is ported."""
+    skeleton scale), computing in ``config.compute_dtype`` with f32
+    parameters."""
 
     def __init__(self, config: Optional[ModelConfig] = None):
         super().__init__()
         cfg = config or ModelConfig()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r}: only float32 is ported"
-            )
         self.config = cfg
+        dtype = cfg.torch_dtype
         c_img = cfg.n_image_feature_channels
         self.backbone = ResNetBackbone(cfg)
-        self.fusion = MultiViewFusion(c_img * NUM_VIEWS, c_img, cfg.n_fusion_blocks)
-        self.temporal = TemporalConvStack(c_img + cfg.n_memory_channels, cfg.n_temporal_blocks)
+        self.fusion = MultiViewFusion(c_img * NUM_VIEWS, c_img, cfg.n_fusion_blocks, dtype)
+        self.temporal = TemporalConvStack(
+            c_img + cfg.n_memory_channels, cfg.n_temporal_blocks, dtype
+        )
         self.skeleton_encoder = SkeletonEncoder(
-            cfg.n_skeleton_feature_channels, cfg.feature_map_size
+            cfg.n_skeleton_feature_channels, cfg.feature_map_size, dtype=dtype
         )
         self.regressor_k = PoseRegressor(
             cfg, c_img + cfg.n_skeleton_feature_channels, predict_skel_scale=False
@@ -187,9 +195,13 @@ class UmeTrackNet(nn.Module):
         use_memory: torch.Tensor,  # [B] bool
         mem_features: torch.Tensor,  # [B, C_mem, h, w]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One conv-RNN cell step on precomputed inputs -> (fused, new_mem)."""
+        """One conv-RNN cell step on precomputed inputs -> (fused, new_mem).
+        The memory is warped by the f32 transform and cast back to its own
+        dtype, as the JAX cell does."""
         cfg = self.config
-        compensated = apply_ftl(mem_transform, mem_features, cfg.temporal_ftl_ratio)
+        compensated = apply_ftl(
+            mem_transform, mem_features, cfg.temporal_ftl_ratio
+        ).to(mem_features.dtype)
         mem_in = torch.where(
             use_memory[:, None, None, None], compensated, torch.zeros_like(mem_features)
         )

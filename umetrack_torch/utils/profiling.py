@@ -1,13 +1,15 @@
-"""Wall-clock phase timers with throughput accounting.
+"""Wall-clock phase timers with throughput accounting, and a profiler
+trace context.
 
-Counterpart of ``PhaseTimers`` in ``umetrack_tpu/utils/profiling.py``.
-PyTorch returns before the GPU has finished, so a phase that must include
-its device work names the device as its ``barrier``: the timer synchronises
-it before it reads the clock.
+Counterpart of ``PhaseTimers`` and ``trace`` in
+``umetrack_tpu/utils/profiling.py``.  PyTorch returns before the GPU has
+finished, so a phase that must include its device work names the device as
+its ``barrier``: the timer synchronises it before it reads the clock.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -49,3 +51,24 @@ class PhaseTimers:
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self.totals)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """Profile the block with ``torch.profiler`` (the CPU, and CUDA when
+    there is a card) and write a Chrome trace, ``trace.json``, into
+    ``log_dir`` (made if missing); does nothing when ``log_dir`` is falsy.
+    A profiler that fails raises: a run asked to trace never returns
+    without its trace."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
