@@ -10,9 +10,10 @@ exits non-zero without a result line:
    and whether cuDNN and matmuls may use TF32: PyTorch lets cuDNN, so every
    "f32" convolution below runs in TF32 unless a phase says TF32 off);
 2. the build of ``umetrack_torch/csrc/warp_pool.cu`` and ``warp_image.cu``
-   with their shared header, and of the native idx/bin reader
-   ``umetrack_io.cpp`` (the ``nvcc`` and ``g++`` runs started together,
-   ``-Xptxas -v`` condensed to a line per kernel) and its time;
+   with their shared header, of the native idx/bin reader
+   ``umetrack_io.cpp`` and of the zstd decoder ``zstd_decode.cpp`` (the
+   ``nvcc`` and ``g++`` runs started together, ``-Xptxas -v`` condensed to
+   a line per kernel) and its time;
 3. the image-pool warp kernel against its plain PyTorch version on the card,
    at the tracker's bench shape (64 sequences x 16 frames: 4096 pool images
    of 480 x 640, 4096 warps of 96 x 96, coordinates from the port's own
@@ -62,7 +63,14 @@ exits non-zero without a result line:
    costs; the pool kernel against its plain version, its times and its
    byte bound at the three shapes this path gives it (one streamed frame,
    a chunk of 16 frames, a sequence of 64); ``calibrate_sequences_batched`` at S=64 x T=16 (one launch)
-   against ``calibrate_sequence`` per sequence; the two eval apps' ``main``
+   against ``calibrate_sequence`` per sequence; ``[orbax]``: the zstd
+   decoder's build time, the embedded zstd frames (``ZSTD_FRAMES``, made
+   where a compressor exists) decoded to the content their seeds give,
+   the checkpoint written by the port as an orbax directory and read back
+   bit for bit (bytes on disk, write and read ms and MB/s, the ``.msgpack``
+   load ms beside them), and ``load_model_cli`` on that directory: its
+   parameters equal the ``.msgpack`` model's and the S=64 x T=16 tracker
+   gives the same poses with either (the gap printed); the two eval apps' ``main``
    on 4 generated sequences of 64 frames and ``load_eval``'s aggregate
    (MPJPE, PCK-AUC, MPJPA, calibrated against GT scales; findings, not
    gates: the checkpoint was trained on the stroke style, which needs
@@ -102,11 +110,13 @@ exits non-zero without a result line:
    profiler), then ``run_resident_training`` with a bf16 model (loss finite
    and falling, ms per step beside f32's); ``apps/train.py::main`` on
    synthetic 120 x 160 batches of 32 x 8 frames (one ``warp_image_full``
-   launch a batch; the final ``.msgpack`` reloads to the same forward),
+   launch a batch; the orbax directory ``final`` it writes reloads to the
+   same forward),
    again with a JSON config whose ``model.compute_dtype`` is bfloat16, and
    on a 480 x 640 training tree (one
    ``warp_image_windowed`` launch a batch); ``run_distillation`` with the
-   checkpoint as a ``.torch`` teacher (finite gaps and metric set);
+   checkpoint as a ``.torch`` teacher (finite gaps and metric set, its
+   ``ckpt_step_*`` orbax directories);
 11. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -204,6 +214,344 @@ NO_LIBRARY = ("no single PyTorch call computes this function (grid_sample zero-p
               "per tap, not per floor cell, and takes float images and normalised grids)")
 
 
+def zstd_frame_content(seed, n):
+    """``n`` bytes from ``seed`` for the embedded zstd frames, the same with
+    any numpy (splitmix64 over uint64 arrays): 4 KiB of small f32 values
+    (Huffman-coded literals) and 700 words of a small vocabulary (matches),
+    repeated with six byte edits and a run of one byte per copy (repeat
+    offsets, literals between long matches, several blocks)."""
+    import numpy as np
+
+    z = (np.arange(n // 2 + 64, dtype=np.uint64) + np.uint64(seed) * np.uint64(1 << 32)) \
+        * np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    uniform = (z >> np.uint64(40)).astype(np.float64) / float(1 << 24)
+    weights = ((uniform[:1024] - 0.5) * 0.1).astype("<f4").tobytes()
+    words = (b"hand ", b"tracking ", b"crop ", b"warp ", b"pose ", b"frame ", b"umetrack ")
+    base = bytearray(weights + b"".join(words[int(v)] for v in z[1024:1724] % np.uint64(len(words))))
+    out, k = bytearray(), 2000
+    while len(out) < n:
+        for _ in range(6):
+            base[int(z[k] % np.uint64(len(base)))] = int(z[k + 1] & np.uint64(255))
+            k += 2
+        out += base + bytes([int(z[k] & np.uint64(3))]) * int(z[k + 1] % np.uint64(300))
+        k += 2
+    return bytes(out[:n])
+
+
+# zstd frames for the [orbax] phase: the card's machine has no compressor, so
+# these were made with zstandard 0.25.0 (libzstd 1.5.7) from
+# zstd_frame_content(seed, size), at levels 1 and 19, with and without the
+# XXH64 checksum, and without a content size from the streaming writer:
+#     c = zstandard.ZstdCompressor(level=level, write_checksum=checksum)
+#     frame = c.compress(data) if content_size else \
+#         (lambda s: s.compress(data) + s.flush())(c.compressobj())
+# They take raw and Huffman-coded literals (four streams, FSE-coded weights),
+# predefined and FSE sequence tables and all three repeat offsets.
+ZSTD_FRAMES = {  # name -> (seed, size, level, checksum, content size, base64 frame)
+    "level 1, checksum": (1, 200000, 1, True, True, (
+        "KLUv/aRADQMAbKEAmhRtQEkQEGUxdZ1dl/Pgm+kjiCYwgDSw/xbWdEEK3TkiwELCwHP18pKjf3Dzab95jTx9LYSPoGqu0pob"
+        "cFlmAQuhgy8oZS5o0emxHR0S7AP0A+wDJqRVPzT21kKe6LzUVFUWylkRR1qw7R8UVBvukDLvYKHJGhAozDo+fp8iCBE4jV60"
+        "2Zh85aI5nsail5d1omb+Q4i7PAJQK/+wpXkhOan4x9p1PxC+D888BlZRANvNokPvC4CcM0BtbMadOu9Sd+jbPsX+YhWZqeYk"
+        "qR7ImHFcJ20NrphepQyf+8ji5k4qtQ5CDq2/keCD05Axl0U0udIpQDDbDKjRy/TYyldWwMA2T2z28IP7TRnUvRSyK/t0UboN"
+        "qpJAH5nrdV+SjtdW10+RUE8bgNTD1EBrMnJ3WeqBqW67sBcLOTK7hwRQF5whfag9ZjYBpvEL8Gv0RUYn12JCPebmPdZUqvII"
+        "gz/vA/rzwOld17hEe6bAoZ+2rYiHHClsK288GgCQ3vZwWfgReB5hLl/K+IpX4W/Z9XSYCd4ViQSf6cIrOJSCKzhFy8xARA4z"
+        "FJai66CCttwW1ittDL1QmO+P4AbpbxwmvyDJ3EejY56IKQBfo9T9p6I3zgPN9rOS1PVe3/sgEPWNwGTlJ2UDgg8YMuMzr+1K"
+        "rG3eAXN2nGTPpTiCvI7J8HUsYAFXgSDP5wj1nvlIHhgV6U0IHV+pzkx2elLnPwCf3EYSJ2y1whXHqQDrVvzxK8T5xlBmSF2C"
+        "MmgLzYi22JC5BvujIej43LzTtXQhKii7DamwkYxFNhwZwf8QgYInakCMIzD8arYKtj/EduKnrGJ4EIiZs443b4qA6yvY2TWQ"
+        "kVsz5sRRQ/BhArZVmVlKwmKzsdpmJR80/nCSzkGTslNI8cpTM3hkJyujlxKixJeY+YHPIODmvnvTOUW0b6QCSGZycKITy7bi"
+        "I7Fu9tDm7BgzGnsQrysTxeH9iClpF2n8+p0iWR7aROmdEsEaVnJrKVO+efq25RkcFv5S2JyHiVG+FBBLKpcW06M4E/A7HHhd"
+        "tlf93qIk7utuv6eqLlZi+dXeK9ScQa8Zh4DU+El1fn+UIZuFJkjwFgVQfKgtzc+ZBOJeRR7/6IuoSdB1O20L62yovNkHjqj7"
+        "sFC7KbDZSy4w+50gCjkHjtcXS+g8jxvGPsCnsSkwistVHTPuhwXPn5WU7qSFV0uIQPtTOKS89OHKTzmA6F8sIHoHcao//eo9"
+        "tYRkvnrB81iKZDqICUqYSSRXk9Gy6CjyuL2Y9dNBwBRjw8dufNkn9chJC91mJgju04tmpn9qDIGH8JoZW6/gy1NMpi3aV1gM"
+        "NY2pw/bJXy4I+OgT6Ao/J6tDM11lwV4siDbY32Oc4ufrWhfVHIQ19DwhuLwVA298rgNcO0a5zElPjm6ATtx76AAMfmLnhJHI"
+        "vl8UadZJbLJyVMzOA3E4WwsCfAE+HhuJMPoUlgBmDBRs9SQHPl+8keMpHDHTQAoPc/Wb5kvoef0HFH4ed1SN8Zowf0QLCT4B"
+        "k5nzQe3lrQLS/M+36aaJwqyiARp5gl1W5jB18tUPsHKPkRw5Z8hk/pFy5xYMaTtOQvutNsS/8tvifgC488pHw0wCadEP6PF8"
+        "Hg2Y/Fbc43GLk/GYqEJ/YQD1l4ws/4KOkzcw+O0tGLceRHRmDhycZasVTuImZlx5Q9hlnIaK1jdMnxnDF/sjbBDJ0bE0DSWj"
+        "+TtYxy5AFVfG4v7FiGe6cZTBxlyizImOfxh24htBF1EV5D6aTF2BJ6bbCUV7DWOziVB5pHah836IqhQV4aT3k9Bceg8QXbeS"
+        "pRevKfP9KoegPBTGIU8VARI7+5mxnkpuAKVi3ATZ/aKhHA4nxt2L8A+dXfJ0M3Z12SjKXiPpPR9quQJ+G5K60QGCMlKQz88v"
+        "MBySLehTWNDRVbzwspTaIQ7Lws1PK20sA4TuR5Hx4i+kqE0lzUZW8QMsM1FIUqUCgBX88vB6pJZFWMkE0phuj9KdT425qsmz"
+        "u2ImH0VUm3ziypKOmSqz09JkjhBCYrxY5O1CBS7zkgNmpiqN7/Sm0S+zFOacny8n86NzhEdmm4F0eGElPrjiJshvhkpQys2s"
+        "CmA2Bjzbzywyb/Bq80IKPH1LJK/juBZ6SLTZSmRZ7gEOQ5gvCCv49+PNfcXI1Y6+nBDp6qlBbv/jxi/vnJn+VBCqcfA9YzdY"
+        "aYPpU9I7vmgtBaMZ7+TwZgxYyLjiDUEnUmLrjd4v1YgR1kHkPB/DkQT8rgZTPCXkm4uadLgNJJZxGaJqJ26QQItF87yByG0O"
+        "IWTtpxjyMoYLRbLWGpnGbnnBXSo4YyhcqTez3D4LkcsxODIZg/nhcm1U9ylAa8BIpjzbSZg267jBCqT7InUubLDegq+at0Bs"
+        "iXlsaeMoSducYYaYc8Ad6gcqSOarKDf6RXR5kjwdp8tzPcTjfkIO1p144TaeGCIcw43ZgwvwiMsYRnuIB5zbYfhzqybBhrIY"
+        "7bIOCt2MAvc1BFGSlUxQfvWBPJhNhTjnWzH0ndRFpXXA612ePL1NGBg+RkTpVDxos1ULnpbQQ7IPIOLqHhqgTsLLXith4VoJ"
+        "iMje4uXae1CmsIzEbpZqAsel9JxuxULTm4pfv3R9pLJdYPoRFG7+kCYptx2GeAAWsA3HaTLua+HMKUxw36hHYq6gJPFDrOF6"
+        "lxxdLwWRI3tgwpgpAP5NNdV4YRhhuKhuZPBmFVWmueiHy8NBeL9h0flNHdHcYcmWTxEWZiYt5BdZ+X0Tga23atYF1vggbTdJ"
+        "OtQqR7gNIiqZrSypfaGZ52vUrrpSUTEH3X/q6OpFExa6yt+ka/gJ+hBDXBwBJo2tYoSie0lU9BhUpO7AGAyHckiZj/wsc3ah"
+        "n4bheQ1VnRhLBvtMXh789AmjD0bgBWPgQfsiolj2I3T6O15YvAkWgM0H1vQLJiz6nVIeDPWj+zAl0f8oXXm1B/WjmHTBXbJP"
+        "d2PG/CoqVRmrTNXnSFnxUiOgfAyWNo7HvL3HvPYOPK5sNQGaS/yw4M0st65CE5c9tLnsLJDSuA2INNYBP2Pu5FfuiTlknSbY"
+        "TvPG51y0fF/qfOUOdD+vFQMwL7ERyztVr9j6fXbfAjb8yIafvBOn533UIrSKoi+f8CbYUWGYecqtMpOgkiY7EQDYW75Cr9yg"
+        "mENkGNFFMmhsyTR71KgkUudiw/s8hN8/0YHLU+/MdJ7Z0zsZvz/kIrGjkgqbiFJWnhBt8r8cPHKW4JCDQfL6D0OEUAGBI83P"
+        "MdpfcWEam8n7gls0u66IBK+PrlzUnC1MGOv8/oZLFvlozvGrkVM8bMj2tYAMwml8sL4GQ50ADXNNN8XlR5zSp/AtfrTH1jso"
+        "UfRZYNBMwZNKX6r39CsGTDpd9yoWEju/yceax09JR8teeEcXSr/bKswZsJTAGahxNh+OqUOOddubxMm5KnhbCuf5ExR9vNYG"
+        "ch7V2voXM1v+QRK4TJThp7eM+fBCXtHMAQTGjnyh80Q9ax2jm6+BsIEYxpcu/IMu6kegpk8Exa8zWELpWAbRslabm0NBlGwi"
+        "PxZiOjddp1Hp5Fa0mPlOdxsFY9Od5qJd6ICT72By/CpGLh022O0LAgjKKzKwyyQYMHwK1kPfAIzZBuR9vzqAaPsTydzzZXoQ"
+        "MrxxkA3drCIC9ZWEiATLkMF6X/78o+X7nbTGHEXI42gnpL0DspqtpgRju0RpppoF+cyt9B1tsvxR6c+LeGnAt0gUduOfI4wG"
+        "yOwgWShbgy7JvtyJbDM3jYJBZl5Y8QwbB8DL9K3cYddpAHU/H4deZIiFGEkC2Nbiw/GnAMG8CwVXH6IX+0eNZIYKghWUgAI3"
+        "BkyizE0yrX8OFnHEMjrtas8X8oLzEgRwIzPpKOBanNTlEVz0PA4zBwzZXHnoa9FhRDrFQhqfbRYV1222aD7EB97XqXxrqjho"
+        "e8Ck2UCqhuC4GlxPtMXJJxiixMtUcX7Qog64AG/MbtPEbQl5W6oilthW3OCr2yvuRbjJxR/oSQGXmljYiw/3n2ARvhrE6YdV"
+        "8p4AEoPfxBfEoV5svYsPs3lAYJQJMKPGKOS4bYGcnItpXIS93pg5hZG5tkKY10wjTMeiOM0lcuwF7kyxGQXj1BU9kPuoKqM7"
+        "QVMZSzBV+EsXsGimi7nP8KXDCRALhPAgtkLJgRFQKgugrqfsQwMgfJFU6N6ifNjghCpYJOAFBmmkiNTcEEOBacEKqhpGEs+S"
+        "yEmdFrg0RISw6FMkwhIFdUgxdkygncIWJS5niEsLjAg3nRuIJ3psQGQuoJa9JpGFpVnJstY2Ma3aGlozi9WqrYWlWcnC0qxk"
+        "WWvbWtbaplVbW8ta29bUslet2ppWbS0szUqmlr2KadXWoGFpVrK1rLUNuqaWvULD0qxkYmjWLBY6llZ2drVm2aBjaWVnV2uW"
+        "Dbqmlr1CxdCsWSx0TS17hZ5drVk2MbQa0LWstQ26ppa9QsfSys6u1iwbVAzNmsVCw9KsZNCwNCsZdCyt7OxqzbJBz67WLJsY"
+        "Wg3oWFrZ2dWaZYOKoVmzWOhYWtnZ1Zplg4qhWbNY6Fha2dnVmmWDiqFZs1joWFrZ2dWaZfupK17mAZJzHCB4swhADJ8EpXTJ"
+        "K8XXqoD1PVzEOAjt6SFQmnVPYZbPod19TuI1XhzT6FsCI/srQfd5vCzxyiE4d4MGDl6DRtocSngFm5x5O0sbZS5KEtQEfJDl"
+        "hEjYVwEV4VWQPXWMVdpMl4+fJGSJb8V8aMt8dSmIOeJEKtuMIsVhjIXr+xEI0ONeETipmOCwLYUJLT/RDcEGSKD6PFuQGUXV"
+        "TF4SkaUzuKn6HQavMznj1WKgcT5XxpuPxOSMhaMr76Bt6RFbxSZ0GvblAdw+yQuRSq2MC0NRw7ZhoKNHxl4xUhisu2mdPGbg"
+        "x/XOvo7kADlYxBLTb3TouqOXD/69YvTUM69c4QrWe4QUGwQDGH6R4V8u+lKIfYqwzmON2n4+0VxU9SJrKdagPnnD+tuNxpaR"
+        "881BXshczRmnbyE4r6VX5XPZbwZiPPE6PVlegwdiGoHJbU7qcfQeGXN+BcioLyd/GooLqjdW0MsVkBIzENbRBXOkrYeojVk4"
+        "mVQdF3ibyJZqJjISl6Ny2ThxAyXcAoKuq9kzy0tRJ/qJATgqJk6YvgEXGm+ypttrOtjIOlBOGWgr5xUhkFqKji6fEpGMXah1"
+        "M1A1rd880OVx1J46Mjr0T1Ed56uClq9gVMEXbD0dRF+WZ2lcay8rXjlIyOmJYw4/qcztt6LActSVSk9yDfoLbnzkpi2WD0IS"
+        "DJ4kgc0T7Cpzk9u3hyppPx1VM4cDuhxRRTU2FGP2HxBsXiIS8tOsGP3jy9ULmVFAMD7y+hPKu+YAMporECb19wtThmZzbxkK"
+        "vhELyMZCx/S0t8aYS/fZgTP+CyAAkFbjYvpPI38/AjIx8wzpeROWYt5lLkf7MMB3nFf0MzMqPZ5iUgF1pf+EotBqLHR5YuVi"
+        "S/5WDAcDtn8I6XIxEdDwEBi4el2LnIukiN9MkHiEEk5nAyWB+qgBs6TGxv5n0QQEMQghhFOYDhJowBgEi4UIwkOGGESIkAiJ"
+        "8I8IiDEKWXq4hQMDDHqLIy+ol6apGpRXokW6EiMomkR8BdnhMkbzgdlzskhQb08ludhCSayHtJWITNwpld+pP2VVLp9t9BoL"
+        "KQ2ZcD5DRBUSasmgJkKSTVUlRvgIC2X0IgNFSwRoZngfppOTQzhoy7So7hXIxeiu7JBeistDqHIpkF1SNbNKMok3QgEbUyAO"
+        "CNlUDEPHQbccpUBXEtQ8MRw8qSE9IpROHZ79zoXYqQpSy0sUMB15WPxbQaTjRGSPefj/PK9Ljom/UlNHWr6Y0a43RCp8hEHb"
+        "hvNx/R1boh+opSnUOSG+M8rgbUirI3z3e6zyuWKiiFU9iIeEsNmyGyjNEphnysAUj8J1yFUq7jA5ZBMVFiINQ6EY1tCMRBLe"
+        "a3BheahcMmwcWAQlNgM2+UeM9FgV9U+rKDBQWoB7sRwodwFO7KOgPZfEK3iMmanGuxe9uF5jsyyC2UcPiYKyLq3KkB1w/L+h"
+        "WECUBbuy3nJOl1qT5gKeKYIG8k5gCdAZtxM4xPVhPMfeZBqtB8UslivxtrCme5uiwZcDfOFiQSuyhuiEOmvPdyZ20DbRy5cZ"
+        "K+QxiC/D2WQ1QD6tphr0EtxTgfMhurF4PEkKlr3BhXC1SFmZJYz6pwZ4A5g+eEE4h1U/3M8DZnt6gMOzn/gFZ3izEISVH1aU"
+        "XyegytkmdpN4C0ompQm3cefD8tK+74oiMiw46xYq2VKibWBL2nguat/GvOJrU+kwht+cksJI7xAy+3oYwcesi8xTSHSqNVMy"
+        "Ud2oi1+w7GS+bo9kf+/LZSwQBCqtA9yDu5w08pnwAJSfW11rLRu5MgL0bFNBUMyOOFGyxmiJsjCilmykxc4xAwLGdd63FXDP"
+        "9IAYEUvMB6o0wMk5Ckqstt+2Vq44T5p0Xee1qaY1Clv8cUOTTcd2AWZt3uAXJv1ijW6jIF6Hmax1IyvG6OUw1UlmOI8jW5ma"
+        "MAnWhXgpO3IWnbWeOj73IUuD0GLEXDRqpHHM6g8mM90yBfErGN5nTjP3ixNNsEvbJgCrl2chZA4veAsmTQ9NLb7Z8D6lu4DI"
+        "fwW9DC2jKYJkkUcgXd7G38qbc2LLcVlLwEbE3JSkSBtCN44C5d4PGJcFw0XsEvuHg4hrWKTdNe8sFCfqCE3lAkS7AQdRrudr"
+        "RrGeg4/pHunGAWD5BhCwGp7lcFRsbk3QJ39Hqn08U7VDFkY/jy1Ohk40UHAhS9UxFr4Q2lTK+U2o4ChDPn1M8yLxn/i5I6Gc"
+        "PLNJXJY4dRdPH4Bhb9DGzKI4aeK5mDA4bIH8+iigh7c8Ck/qvWDNwGG6EqGYxM93Q+u6WH2AAiP/mzd1E8zEqwL9BwAUA7xh"
+        "zQDU+8l2fqOyCRnMyXdKvIKK0Fn2IudSXUmEoFnrTF1xmuNwVWpJVlgZxbPks1pFIAEHlp+jDuESIRQMgihQd9QJ7tTRUox/"
+        "vjCqf2+KUYBf3E+JFWBCeP5DVbE08IWmJ6FY28iXUlDE/CCMApduZ3qGhV8C+g9PsSBUdI6FqQI6ICNo7L8DxXKt5JX/fukz"
+        "LFUJwb4wFYDKJEFO773KVvtFlLo7+MwN8EVxG9E/cOUEkuEHBO35qZjv+FIr/179MwmrAn/EpVApKBCdpRTkpL9Zio2q5Obq"
+        "svmZKFSi0hFNgahCAQiWE8Dxvw4VY6gSDv+z62dj/kVbXa6Sot7V")),
+    "level 19, checksum": (2, 200000, 19, True, True, (
+        "KLUv/aRADQMA1IIAmgAlOzQQkDsdCSwKqFSSwiMH0bmU9QNDuPBjbmiwYQJLxAeJFwTwo3VRL3Np4U5xSCvX8eMllkULpAOh"
+        "A6YDfLTNaAdjPhDV9Rm+9hqbeOV+fKyOBlLJL+2I6c0Tgf6B3a+6/P4DSYiPZmZATqMKbO6CMX968nRHRwyygT9Y7+FnLDbD"
+        "m4KYp3YSvMqH9SVO7TsJNv6YoTMXtHjmj9qg+rHb2WkodJ1OBvUtQKA+mGGgL7Ni6DqM/p4AlITH4LbNb2fy3DByi2sJd5tK"
+        "wFR+87ty8SC65mnXM0dB8vM4k9h4EI7vm8EJNpoxhi/3hs+xQGF2pLaz/EDrS/94hOiOdX4dAmvT9dh0YwMwppmLyqVHySbG"
+        "X2pZ+LDMVbwI0hU8NSP7UDao/ICq6cdwPHUg5DeO2sj2ZdxmtgrS4TPw2Ps1yBcdh0mSz+w8/YQdXflp8fKjkUg0nhuIXMkU"
+        "z5zlg8/hgF3jGhrm3g1vkMyWaeoPAnlmCo/+3JHdP9OGHJmq689beWBrKcXEZO5An6yIE8/AyC2T9UVjQ8a+ThyjlNc2r99g"
+        "xmB+CmPgiCjN4EeHzFAXqDprIbP38HXG7+jqp2h1fWfFs7k//nrRiDkP/IO+GqIdXKZI61lRrHAUPYOZSmhtQkEMcwSrP4f0"
+        "KPMN0GGAzxhtnUkV9r/IzGWpOah/s4TkTarQ7pAiM09wMdVrjEveYom0DdEl6S42Xi4LNFD3xJNmCZDdeEdjFh5kVY17nIHG"
+        "Wx3QXwMRxg0xrIF5xN9MAQKP3I7W10Am6YGJlHkKR+G3bzdDbYC5KnpM3ezR+1FThhnLjWRDxYz5DjPoy3HCriUrMk+YEJel"
+        "fmhhI5LVF8PDyxeOPD6Tt4bPYGTtMYG0OUo14JU4yzQZPtP+WnEXE4lw7SeFJF+Bm+g91c+uJirmM7wrDkYAVYvQnPqimC47"
+        "zdj7LDqLqBlsaH8KQQ5m+gBtK6/M5jZygdu42/gygTTnAlvPUqnoUtgkxk9bV8+AwvpcUcccveLGmtvOj0DghsfhVXNWGGte"
+        "wPU+UzcLlzny7QNxFBuOCsYm0oeLa8Wp9Dpqf/CcNsjXSqP4FBA1cMYXlfkqj1VvCHL1F770+QVWROI9cVBw4RJIHxOh+ls7"
+        "Ih1QlewDoDrrRZJUZKg3sK5RQ+o84EJ3tHLpRwSIP+HvvkKhIB3pIYlHcYzjAtpBfQuMqV9OUWxOK5+toRDbmI978KG5Lczm"
+        "T5rbLGG4GQyJHoVx5ZRjuF4IC7MbDYl8KSokf4H115yD1JiQUJup6rayEvdHXhNUzdWyQmfC0gcj7tjGZgqv3eaQIbfOrRti"
+        "iSR5Y5rPjCBtsOc4iuky6lSmQjrxDy6q7QbqBj8Zof0Bn9WHIOOyBS9q/I+386V5TmDKIVP4EkBndxO59aJdpG8dQDoZI4gy"
+        "2gwpH5YBMK/ZCZDJHsCuiMGnG4LC/AQyuD4ly9arVVj7KA+ATvVE/QgBMLwVExkce9HGHyq1cRapNBO4A9lHmhjbj0/RK/H8"
+        "cpNiXwaw4Euf3biCGanp9Bi6puMQ1Ec01+uzXdvEXHO2PqeGITVP7sKfT+YcLtLdX0BbguFkq24lwCDuFbEpXEjqdRpKd02n"
+        "hOOj3YB6lgFm//gC+V1Qd+2NUn/pk8UHKDP7sgRlnDNKBXzEUNs1opnZS0/Kf0GhjsZzMxMI5Ppno6SPPU6b8O2as7bbb5DG"
+        "6DSYuK2FQpnNnB5/K8VXT0YJgQ9rQK61FBUyZ/BC1oZUxwyfycULoqD9vWPwYosqOtD36oSyKuMpkqqtJcGm9yiTZgVEormA"
+        "jMB/YMb5SmbcXFPS240/HL0wRNa1grRtKExE8znScaHEgXYDazVf3anSeYIMiiHr+p4Nb7JFpKj0D5N0+UIWsKv0qYzV8mwf"
+        "zcoPzyuT/QBePHiNImkjLsp8CNasLnxjjNvUQfMVIJlTsBOSpyAh5jCuAZ4VhcSfXp25aoxEJ56JcyXNKc/clOouO2eonsUg"
+        "fbkum+6j26GzPJ61F26DA22lrucFVB8x/GsiEhIzlhQ8T5OjmL1oeLMCeOozpKjmxJx2Gu+dn8EjxgX3sN1oA9gDeAvRfgTU"
+        "deAE7gNYkuJ0bXPtGafoTE0GHUkRR4/qFTaiBi4/he2CoZBVYb417ZNdpX2V7y6zSdjsPrhpztrEth40jA0nj2dLInKYG/y9"
+        "V1UtdSSeORgNEa3L0LHNB+r4Gg5uqVf80Xoc9229K9Tuo6jDL4Gh4CC+0lfa8ua4bpW2Ehn7zvvMJof6B8x2/II8FX4YPXNC"
+        "FH1P5gFNSzKwupTM2FcBkvJeDVh4LOTTxeJQ/RoJ2YdVKY8T9wfbIdD5Yi6UfA8alCfiubYPP2Z9iInSMUkM9qYkJrWaB30s"
+        "a5QbYfJ2oS8q8pbaWuxgMduDNACb68gW3vTT50MA1XUQE5VN+AaRw/Hi4otac04jawqGIjjnkfnafDG03ubb9hnMtHyFNKkk"
+        "DhRJeAeDWHwCJ0aYjpRijnqtwVaM00+D8ZTH7DJf7ZOsvTG6uU0rq6WwUeW4GGLSwlROP4zPhGfpxD2cCQodIXEcw7n2gMXT"
+        "hzw5/ABuZ3EhV5+D8XlzNQVeLKTp+gXkouAlhqZcQUyoF6oT0YMMZL2LHsesJckoprJY7UexJs6yw9oemmzGdW9XfQJBZYb/"
+        "bHMV04Q7+EL3VH4KYbAD349y0ZMXVB1l6p22XL3E+wqbfX9mRkeFUgXlItGcPoEyjjGaDoq/JCjogZIkyQ8EJfMWgASwW+U3"
+        "Z0n66uuMpX7CYpB7dRZmLA1gLWaAF55kUm1IRZCt2Cb7TIMdfgL16qUaYcTdJ98M98Ksx2h+/lQRBf+UY+w2b7knN5zFHxxl"
+        "MyyIzxsJ6NBsFhXdzlObR/KSfbCpbH7qlHoNYbR5ghMlDKdEm8X8SMWECud8RWU3d9NgvrCdyld0L2A4Ot02sWj6UWNrcRcM"
+        "8uHBH76Bz1jMAsn31eh8emegZuaqY/BOjhrzhDRfnAxm4r91aPMuVizbsMs3LqJCSh1CqOtplnxhKQX6/I+CpQ8bASdX6+bE"
+        "jYh9PRmH9T2QdvSYY7vIdds5+rB5/Lg/X3pC9K4F10BmOakXbpUlzVmLMPtLVrF5VNn6kkDYn454z3oifKVz0BlrdPNYELne"
+        "00HNb4CTHSYv8aMmjcVnDHTzFRIMDUlsLD4E5ZrL3OzFbHm0cDRs+grgfPoCykLfY8QxQ+l5+RHvAO9C4tstGKt+1VpqvTDe"
+        "fsPEMudJkLLUjhRfM5XmqQAo7oiBlPNBIm3HRpuZQaMUGS9s11hJJMUXYKbu+0GhJ0qDtpMXiJ1jjKJnFUB22B1iz9jS91V6"
+        "NGPGtGmOgqKZv9C++TzwjP+mX7+zRtWFCFH9gS3OJ+Mz7DdJ1cxF6X0EFrr+zHHyKyzCtpeQ4jPhGYs//cy1n7dMNxM16GOA"
+        "tD4VcfdyMT5jzsM55xDJ7ageLHwow2B/+3hmKOvUqX2uXFF17AGEfchRPZ2NZXCv2RB6tmIYNotFSWojg5Rcrc5pjiom6DuR"
+        "xrJak+pntdmQy+rADYSS7rPASJuCjrH/ahKgucT8NQ83QtwGnG0/9ljqzDhxTbnnzWJ/uclQbn2I2tdTJFpjIgWsnVZ492Uz"
+        "rF0J4u8j0OBmrARhmipr07VVR3j7SOplQbLeRE+EY1FaeqtERL9FAzEuc6jTAy1QOfXHlMtWBZqrJKu94UpmV3bwbCo7dzla"
+        "ZZcRRPKEuWpsu2ytm9PKBnAZebXutXDYVPZwYULAb0Zzsms5e1N/pqTPDSf/XPNzgDeuQVhrqBJW/zBmKQc8pnh5LLA19vhS"
+        "2GghwwUMFSn4aLDo09vbYoFNwXfdWiEjRd7Wnh6fCs/Tc/NFrsjP4OGar2I1/oJT2pYOqBzOrxIuFDD1SMnOHOELxlcg8tiT"
+        "nnVZQvbGiw26M5QvcA35Gq13K5OoWovVlIdJw/REOB18LJHnN9E56TyPUy4nTPKpjYFu5k6bwQSTfFTKycVDBe05crY8a8L6"
+        "0ibLrwAIMKNtXfFKbORHVTcfjcqOz5GTrqeLNH7M2o9G8X51skzbWYS6ZlXJ53TBPI9R0RdtMMpkieY8Asc2GQ7wzL2LvO6m"
+        "bykX4MrltyBSvkyFX76AhewTEBLCjUJwfTUjWTmCICgP5YQvFpEk280SnAIdiyZYU4r9NQ22O6oTHKhnPjYZaihMrn7tjBAn"
+        "9HKDBahdO4qhXxOKYpvRzuuAzAI9yuRdPL3S9URywPrMxp2rAWH5UT0MvaYD2lSBCp36B6rjHHbCVp5A/teT2NO4eR9NiFt3"
+        "cbL+mmaYY+bNLIFyqhPV6XsxHlsf1WYDjOXm+gwgsHgooGEHqpPsPYxjTYZPCebLdv8tin2lLUv5rfsjw2kdeQIgJHXjnWmv"
+        "OWTUFyz0dZoCa5z7xrI//SyfAJoe1suIiXQk2q2DwFL1Ki7V+K+v23M01FH/WOh2JG81YyUK1Fx5KgOINshrKwgbxpZttqDB"
+        "kUqF7vpRr7gMc6FZS1BNaynX9OUmYue1pwuewD6W2eNf8GORu/YKqYSKtNkBDcBstjgIZmQdzFU3LF+D41ke8GBAFsDB7FvS"
+        "GrebpG3HGFO/wtYVu+X5NgVMrE/Jaf8JiV2bgLufL6V8AQff9+rq8m6ktvz1F+iFRsR5oUZUcaCCrVurd/kLxaIr6IM646Hf"
+        "N2H9aKstmdkCj6WfVjHbCQVEnqLpyoXY0XkCJW0+UCXwrQbpOi/tmp2aDvgcQlOegM9gJrDF8lhP9wOUaHu2PEC77NVZoyc9"
+        "JcnTPjg/DJz7AhoufYKaa8bwAiu+nNH9phww3BGVuNgTT9+vmYiz2GP92Zg1k0PDOAbrfAZ0JGUuR2UeHtP3EWYMflgdzfZT"
+        "pTAHcJtywqUp2HtVbctAzKzWgct3b2UlCHK9AsvF24yx/CZFbbhcTa1PkdDNuXPPR+gNNhcCm04lEvOfttpiM4auLdlom7PC"
+        "eMaNzFzlDGkWuaYWOjJTDd3mbMKNJz1oW8+Stl58cu0vWmvaaqXrP04isheUxkbArfwrIHjwlztrgMqocUtSVP7USAcgRGAQ"
+        "Q2W2AVEEEBEiK0ACKiDBBCtdkGRZAyZJG5GYocM652/6jK+0zfqgoczIyi0kGjXLTShv4l56SvTTCCRP3XLM39XoewM5rKpj"
+        "zOhDMHnxeZ/6PrH7WDhXaUg0RgGXKVn8yuXT3YRWkboSjSgtc+x549wuGZOVVSFniGaBC51GqkFnjBl/Tum1tuXo5FitX0z1"
+        "QX3seWUu0OY4+kU/U1+xjV0lmw5ZpNFDDONMwii7JpWOCM+PBSN8UEZW6QIOWmr2ZZRQ9bNOA//qkEiUWWh7B3/yPdR/IEft"
+        "QCFS0ctUMb3AZ4PZa8beBxaL1yhNIe84siRkw+2+fdsC/mdmcj95YsVlV7TZRBSoEyDaUuK0AzaEReOk2ljcUtDUiHST7SoR"
+        "o7GNBXm/ABFR2lC3LCZutoOcXBg8XQIyU6NOrIhXMZkYJXZQ20ei+ABUZgvQxHqheYhg0VzMDFPBd7f9zDEjBc4s+EWWA9RG"
+        "80MF5YqhGhsCUJ/jw69ipqCy/QGiCqwSAPQFAPoRH1Nl8gIOvpSXWIUBWNLgoiR8ZALFYpAdA/ljpxLcxOJMFzVMegIa4pCk"
+        "cXtx77veIQCCLst03wl9Alceq3WvA7azXZhNSQBs4PNnNrJyHe3JueWEIGmHjYFypISAy6gwH9BERGREaIs5EogQSCBIBAwB"
+        "RcARIARIQUmAIAhEMMIgBAlBQoAgEAgDpw8g/c0lHTMw17hOKa933kc9bdL2v/VGuIkgGMKl9FvSh+LaaHG0GnrhV5CFkKZp"
+        "SqZOPEuwrOjj+gyE4DA3ha2o7kUbIvHnlx0obMT+icDmJh1ANpliyREGg2f1NEWEQYaAeWa5Mk71aVgMRo0M2YcYdgLYOpSR"
+        "pyBuPdV9KhUVyBTrYUiSNX8K8LdDVqOEO/RZN2G+j+Ueg0HQIDm/ZFA3fDNx0Zysi48rq0Fs1YkrLXic3gIPbAnOt4m0sCsZ"
+        "9uVld7oLCJ1g3Rpo/1V0FWCH7/8gBkvVAA+q0UsCRyEEUW2Mz8stqhkcymqsmJtUWQ3bI+BzJRviFwBbtpzb3jLJQmEfWLSh"
+        "bQjK6odwtfchPilPJrhhvdrFIo8gE9NOrMrEA69qFJ6PJn5/ZWMVoBUZRgSJWcfBXx4Y9Kmpi5hAiEm+amkNVQ3VL/yOioEm"
+        "MTTbMyizYryVsTEh4Bb6rHK+oKjNTRSNNapqy//S+DBRHAfCEIDd3LJOwVYdrhmv0zE0eInDs8G9VYgxOJ6aqmQjqNGh87j7"
+        "9Wu4P1Pgqai9egFmcVz9eBvMOtyFNTI1gXjdkB+CQoNpkpPgLYE8ZYkzmWFCFV0HAOQDQoBTJWBBM0bAWJIBp+5/NTWeAuQA"
+        "lECG3gBlq0SuI8h46FIa+iiyjAvIzsYAt+R6pkD5A6qQUd4uJrPoO0NFqID8cKX81AMSaBD4//8bDIaAIVOF1weMdr04H0Tj"
+        "BJXt9Eqe+0//DQX2SVmncURjLLfl9go2mExLCTbpnFUE4xcbbBJpKlGlIRp9qsCZuaCc1AF9hrUs104tZ5bkSZB7kWSdA+qq"
+        "Jr3sxnLEmYY6CkLsNUh+CoRsOxOgtG3IXfeY/vAsCw9bG7hBEqV8YiWZuyOYzg12t12w07qGV6V9wbmoDkToBPZQyDxZiNO4")),
+    "level 19, no content size": (3, 200000, 19, False, False, (
+        "KLUv/QBozIIASv/UOjQQkDsdY0gmTldxSv9QIUvJ7L4n8PGDhRD1SmRINvgGMEYidxE/Uq6Y3pKYzEsRIpRC5kILmQOhA5sD"
+        "ZRpQYzJFMvsBIMnMJpfpAgY9OZiPLg8VZduDKnE9Fzl9+QGmnVPLfOEu1jSGNAgb9w/vbxVA+w0hyxzF4c6rjJJPx1YXn4GE"
+        "9QOUjRqS0rerqYH6khppvbbL7/m+Widgo9OdzuQcakcXc6q4vpkbYxkKSsYz8j36BRpkzlTF79dYhDWZBoPZgQoZrXhG6vME"
+        "eWa3Kk13gnP0C7/ZTkuMveeDXWdw7LaZE5Vb3f1ltARY8WWM6QORUvseJLRgRiSicQjOr7MFAXy0wky4hx81Q/vI6EVIBO7l"
+        "Kp7wzFOuSju/rlPaSyoYXQGR3HqcnLGjSdt+4mSbyw7zYjWDvj/YgzD2g7T2ZGXjb2VZnQGdmj9DpQUfOmphDgKsGQrx6vvU"
+        "WdL6CVzuus6Uql1UMcJ45tRiK2CszkRXBl+SedtrSrJNC0DUtvqz2ZdjnN4hos+oA7BrKMwzlrSG9bdN6C9WEJOd3h61mwK3"
+        "t5zj/E04ir6G6M9o1+RYiAB5FoMhMKI71u5TdXMJcC/87LIqluvyfDWa2+bOwcxQxw/56Zu6e4bUmFGhbG+yqPOn4d9DyE+n"
+        "kMbFo2iU+TL0TLxZ9LEFyLnClCewucAJMa3HavtSCx77SAdtBmOk8glb0tfjSKpHSED8mIvGb5v4ZSctKnwKdYV9WPi+kMnn"
+        "g7m3x0BoZbcAbjIERTVasIrU05qwcGUlNvYtN6bknDZnxvaQE1bfGhP2UpBYxHlWhv5gRzUXsKTMbWpkHYn4fUqKXI616O4n"
+        "VJ/t5q/wO3jV3AIcFQzFJfULP/JaTN/T2WDI/RWv7EuA3gyXeBljeV5bhhq3x8Isvk3dnWMo5BevAdQ2d8rES7kg5t9EuMYA"
+        "kmh9jUudfxDXn1TJ0KNUEDsFE61Y7wnb+YSlpxmJegQwKd4Imq/3GesLInnMFupAHW3wMSuQcOdoBvziSSy9LFX5wadRAfrN"
+        "X5jDCQg1F+r1vk5mMKw+zeVDlAwFtujdMLCE42A9dqA4qjbkJskEutEvOKiRCeRB4yl70/9r7NPhS4FV+rtmyCdqEJS75tby"
+        "V9tXHIv5vpUP2/9iFfZZE5mOdYFHji54fEYv0XdQKUmLcSTsQDZBjtaE1hmN25UQox9nBWILINv6mFyi3jIt8i80k/pxD2KO"
+        "ylLZVq6oPo9sDPaQl/0CnN+HUGGzizyia2AQwA1Mofu9DXiNyIOUS/NCwF2A1LZiXWtGKZpf50wbY9wM7UZz1pMQDoAFXpeD"
+        "17MfVUH8Ro2iMeQfbX7T8+hPPwgbjp03ljJ2D+nFLptR4Oy2Fdl24yfbF5wyfUtFljgq7Po+JqlixxWZGSuIo4uViPrTUWbX"
+        "B4Ln51UR8VUom/wAJ9vYq/j8s0VY+MdUtgn3mvReFutNbPL4ATwschVMmEflsclRRUpfgtvqIg6eMWKEa1VSWRYZmcmDDrgP"
+        "VKZ3GVlrSijK4jBnhn3YGNfVorhmtsa3WEilNiPgsmozq2k/KZu2ICTc2AtRNoddxcF+eNMutAQIc4KZ+lTwQe/AkelgUVLe"
+        "a0pm5znD2DKgos/IDzZGdCKamf443ZlMvmMPbVwmKduVb4xPhIybBwgs9DMHf20mTF9msO38Fn4k85ReVTxoB9t8djTbCafU"
+        "B3Lx/csKeJ/7OOMih1qv4rKhFTB1/QtsjMsZadSEthjCjlvcHAESiqNFHmkFOwAdAorFrpTGhJtxaHM3xPSsSASfiAv0yVSf"
+        "rYfOYyZs1KaM0vdQaFNfVkmzBq2fM1hs7DZBUa8isctplapkAnO5tV1zsJgsvTZsMPUz/aTwMTVeZ+MC/D6Giu7VYAr3TfJ2"
+        "GdvrZALKvi3qC2syur4QDdocgE8yt32kL+To22fKnnEUhTXWIqhtwQmbT0ZSmEeYk9hZGtr8VHLoUMrFtspiwjvUvM40tZi9"
+        "HN3IXZWwp7X40IC+HV5PpTh/B8cifyYo/Ep0RMA2GL1viaTbXHJusRFBrGc1fshUSkS0XAO1DGao7WwOzl6sAQj/IbY5YHHz"
+        "FxfNP5Nk9faSp7PY5Sxhzl1u4Hj5U4os+kV6gC3DSesvvXB76untejWpH7kIjQPtsH7lhc3/IZnzsQNPMJ0gj/nZXfxII4kN"
+        "SHrN0UhqOS6RlxvokG0jeFz5KlAMhrTMnjHhUrMUHCLDXnDfkVBrb6JN+E2WmqeexnqRmTixBU1rXmBVxjNwrzQXy2vzaQJs"
+        "x7u7HpOWH9FZ4aeQZOzINZbuNCZ9mw9ah4ORqAFkMNGLR6K0oSt6fsXIMY/JyNKCcQrbiZ+4p5TICS8IQoWv/LQZAAkR2Usw"
+        "E76r/MKQ1e/TuVzLXdG27uuA+dwlUm0ngrdBOAjLBKx4dGQdosNjKLNTN3kAhdpuQQHwlTgo8zZDnR9HkvfMaYI2V6gQ4kyP"
+        "xDNPEbCQvRKv3mokCUxn0+oBrlBWo5wQdCen8T2Cz5DhxmqwTN9Qy1NOIAnBW/1IAgfOhtWlZxxq+h1EuLnL0qunl2FwJEBq"
+        "2WurL6f9sfos0jJHE0TjtYnG/m27+XxkCGM9Ckx0F6THfmSZCdf508J8MLKutuZKHKcz6gC0GH4Bgadz5TG5gCKBGQpQpxtg"
+        "0gnYUmG2DaZFX08mMMwXmCzpDE7u4hBfrJlAzPVooWuussoOQdDYI5jbfiKjJL84Q8xHCaTpUC1LPkxW1s0YSN1sjNNfxtP3"
+        "e9s+Fb1vM0jUBx+Bvw1lip6XKZjjYlPG+IPIF252+ehiLsRkC2h5robn0MV05GkjKaBjqnlh3s5sa5lKA5ozzMB8rTqMXp2S"
+        "+HgmRTuKJfRXIEH0J5+/zEXo6wN0HLq0jZWzXZloRWx9LkAG2hsOKOtvjS68N/XoS965JgSprCkVdMgGurb5jQ9hDqDgQS89"
+        "qTFlHmoTDkKdzfFOFmus0Vc0lEgBx2mk9p8lTy3IZPiOfNWWM8j6U8ho/JnDJo61QPJH2LHCdEmkuapoLQt4A/nwHmNuzqrm"
+        "UttW3UzxPhoA1k5by3QoKV0yXJfHY2FKu+uj6f2+FLvFgu5/EfllNDsE+QvRsb+H4v4QCNVDJ1z/sFDgG7oQGMtdZttCCcz/"
+        "4iSOty0QkRH0eOwfGLDvMDbfzIDGX1NJfUQpXjdKDvrUnT7uxbeYq4mwovzTJBdmIJVtLi6wHoAKw1zlg4QZ/zzGnWW032OJ"
+        "CiuJ6rkanUZeJsb4PBRp8wVCNVrOBAmDGe0a+EzmbL+QTPMtsPW1GTGuVmFI6wXUwA/lBdULGDrSf20As1ihtQk1uEfpgjwd"
+        "F5rNxyH7WAilPMILakNLhX8p95UDwHHyZE20PrDrrY51uGYzpkYPKc4znzlBxlgMYXOCPD8eyATG9lFpIg7DRPuHbYb8FTaA"
+        "MZJBaq3FkWKMODXhbXJSbyDVy7Bl1aF6CDqSTmEuk6Hju1xtK+qx/gYvfZ8YmRuMGiqPE3Ii3szCthszap/VurkBgz9Pq2Dn"
+        "ZtzYzargfYol10eTlfaYSohOBeOBv2WvzzMXpeU4acwKIpNkOKemz0Lp+n0ImNNStLnVk12WO1BHs93Y6qoePGi9KmLtt4RI"
+        "Otokmy6RJJq9s9r6ZhtfRXl7MYv6WAQxe6+5vKoadbJKkeJCR6Z/uFfFNYCF5avMsYdjJfwtUK0MXYrianFPMdxndbIQHRxd"
+        "y4rY++GV5QQh2Lwl4bWf3exL0TAzBTM2Z0E2XJuvzrBHXB9jrXEGwcS4MQPGjRYy7HDoeGGno4UPuroWOq5adFgcdlo1XrTQ"
+        "sYOujsfvUXP3WshU340eQTmqCzanARnjX90ecAdJ1izBcMsPGIJe+U4yPY9KAyVTmUBhQtLMp5InjSMLcB3K1Kc7F3FjwTw9"
+        "d/MgCN57Y/0fnFuXk0K+lCfgA+jCjeucUOFKYaa5QA1qfpLMcrEcirntLfpVXARmuahbQ2Ea+ttgYNOZovF0eEDhreK0CXWx"
+        "jcib6E5PNf7ED+nbKdEBRgKr5TKx7NfoEvZ8mFDFaHy4L3eYJDeFsGzu1PcJbAHdgGJutigtHClB26V68naeBV4f40r6Aw+a"
+        "Hn2Als3CtnCXHFd/4k3mKlcfTGmGm8UevcgOnqD1nMm5bpx8kdU4dL4lhLiPAF89igdTjAFOCvdplPlL7gY9giEKPgZFKn6b"
+        "wP2nSuuTARPjXQmgMaAKenEHtud/gSTxDkP3i5uB2SvS/0iOJh1h0g0GNETaIqqw3bod3pbc0MMxTFG61A3LHdS9dRuVXfsL"
+        "cH6aLa6+oi1sX8zsKVFN3lk+9Jcm0a/anPqARA6DgPDNa4cffjPKkJxGRuXx3jR61yOrNnP6meEAtWIYilYHgAerp2hz3wnk"
+        "2m17VBmAIeRziDDNE+YEO8MRw/7bcmDb3U69/sMJfQmIvr70gUjXKdSkC/U8tZsHVL8Htuwebj0/DAnsz2g0+JAe9ehEqK+O"
+        "1ImXpVKcyGh7BhuWk/4cuml3o7a9RyxJS8hzbZjqPDuqZS4jwIrz2ErYHLcIKh6DZtqJEIU92Q2qP6U8asc1U/jOlNpnIqTo"
+        "PkqSbamG1aaTU/twRObe7Yz2wTSRymRhouJEjNQyVEj1P2heu5COssxEBetbbGVdQ1RtfjpSzfDd9QndqXbnCmiGg8xW90Ro"
+        "nawBZvcZnFL96wW9hzvqfxFGm4uNakM6YulQZFhkDFDmnhPP2xxKDMJXKm3vyYVlMTrYf0Sl4WhLHl+Sls2/PgLMT2B1coNB"
+        "inAWoqcvbSh8OhHRF3ShjdvccXOBukXPyRSlK3EkZgM2IBuwyDRTgIrrQS5xWe4umh9ssATMFaociRPBuG6GF/dde9HYUU/7"
+        "OJ6P3RVp2udLG9J/sibeERP1zbTwxkiYaFsKHUQPS4AhV03d8Ca4Z5dw0NUhZImfERWuLGDBiczgr9Df/sb+kaEYf6JAmTuq"
+        "h8fBWbzNzIZfYjikmqfljVF0eOaqpR589bV+pByYXWZYDYDKqGErSMr/SnUgRGCMUma2AaIYFgFEAJUEFAEDG5XKMKFWCtNu"
+        "MpXcBp+E19lar/SabrXlREYnaVAPUUtpZA0fSXRvw8IW1i6yb/J7qnURNdOEvWFx44TAYV0ECy92pSdOqA1+j05XwSEElCTH"
+        "WvwEniybXkRsuDCPjT5sVi/eQMEq/+fBc+N9e4RxSl3Aas4BvoqnY8Jpe5uyUA9eknRIDGwJhUhWGyLI2qHoA9keG774hHwc"
+        "JFiI1fIF0i3j8cgdSFm2DE1vgnTluPOdOQQK6u4Tp8/LpBbSqgG8aUp74o4TVvJ1yzvqFYM8BYAojBUq2GaImzZeIGLCwvNl"
+        "OtROQF0FEA9Y5J/IXLmTIUV1vSHwZBhv1OmNv/ngGKLu8Q+C3Fs+gDPgPa42noYV03cEe0wkuEcTilMloIfW9Q6Ock0nvWTa"
+        "jEwVK5wVmxtSraBSlZP1AWsPmj0K27vqPiVUYnYAb878Z3pNq7p/jEnQvWQf/rZEKvwg/P1QJF43lhwK71NNFsfRVHBiQR+N"
+        "a0H1/GlSYZ3oqB4aUiUa0/wDTBIABAY+AnWjqoCcHANXA/9L3JUBOb2QQ3flAHZb1YREEQNqBfeswlUA/Ef4I11b8UU+xXcH"
+        "AsN362ORW3ogLDSb6QMcnolmy6YABDX9juc32j/gO3a89UQpCEwAsHDQ7NYOA/eAyqggP4ERIcQg5ZRRMB0S2AEhQAjaCAGE"
+        "cAhDwCEEEQFEkCAECIGCECAQBZLW9AE/OGJ2Ie2pJye1xrAfyNhenwgN45CvW3EAKwJc5J+Y1wM17mIWhVXoKKCL4usUI3fP"
+        "tNcZZEu7PpsTIgMKAXDO/Ik+ttiTl9h8qVNIlGOLs1i5X6EnyjH1MVT5CWnvgyt7wb3du/Sf2C+jWovQqPgXopQpdgsXvuUi"
+        "ELoD2u1i5LeTvZL5XGQhIatU8zc0gjS0GMEllOfWy16wLdGAiKyIzG43Lp7TYZuCcf4CqgO+xz8MOLD/amJjzhKnWIdyPUdI"
+        "SqA1HQ/SF+8W9oxVqDJnpZA4xWS/4PTiXcT5x/i1qs8hlS9+vh9SkJxeeGkafUVBxUPq5bjBDxg3ENBgUEpETbEKYow6zUnR"
+        "cDx8BdhD4wvyFsAWv06WzwAV4tmbhEZWPYugwCSdcDHhnyVpFuuXD7Pm5WjpvgX81MdplLEVkpv4xaGr1jn/oW8zmOzXRgZu"
+        "8m82sawDMNrCdoo+KHQTAkRxeeLh66gRUyeb3WhQoNsoRzP0RoOI+b6eaRmJKkZd3FeRJc81heN8Lrw4FJAlGeKSW8VbHfUq"
+        "3uFgRfkc4ET8A721+0EI/SZ89IHiBmevOxhLOSMC9QYAhANnZ8pDdc6p2UBz/kHhamD+KBZonxlVRBZAAaw9fXQBGE3+OhUl"
+        "WtR3k5jeAh/BW9o72AE03C4SpUSocPyQpfzUARJwEPh/B8E/g2E4FMvcPoSwoq9Xh8P+QKpBu7ZNt0JFCisb0kepgj0IA8Qp"
+        "JxTZTzLswlognO4aad/cktwoa9AQSRBlt7C9Lvp08krHRDIEh37nB5B6DFEgH+9H2vLpowBKmH4xAiB4nWEneUE+WpSafQS1"
+        "biUP4J0d6I7qw96UvYGn5raiDQZGfvRy4ySGMGDuROEaOfWhma8u")),
+    "level 1, no content size": (4, 120000, 1, False, False, (
+        "KLUv/QBIHa0A2jgFSEsQEKYldY84zJ5nncOAzst3uzGb0SlOZsWOxecR/Jgm3eXys/VwqeJLKHFryxLesm02dgQZ6kLjfauN"
+        "zCqIcd2+gUjuhhUFtfS+0CR8BIsEhwSvRGSL3yVV3TQEXK2AUPWH5HM3xXP0hbyoN2mD8xiwqDusfHGbVHwIvFqfQIDqqyAS"
+        "Pw0BO/YKlDo7gVA3CWDoaNYQeDylO99Gh9ovKfHD+5IEuqAcnGZCyuEhPGW5YKGvbRT01F9b5PYVMQDaBI6q8QiuqA2AInMo"
+        "GRR9gRXUdhaOE7oFn8G4SqGv/dRiyMv1OO6tPoFeBY+TvvAjb2dAHJyQBj7d9GSIjyHn9pXWkG/Tk9obFjDhI2yg2yTUYDge"
+        "2N6Ugyx9MR3GfVSEhh6KaWkTGkB5FHmU8RciUhpFij+jh+rR2ASw6IGBmroqasiuGlLbrqVkG/248bonjLuMCTcJFiV2jAuc"
+        "NBJUz7dh237kstsicFwxAsoi3TAYKP5bFenBOCh3iC1r8Z5uTuEzUj0k8ha3xZm5hwOM6xkBou4Eqfp/SdVn0hp6FCx7WBaq"
+        "Bz7Qpq2IlLzbk9I/sBKyXlFWnwWPuL2FFbapdGzHo9SubMz86RYl0GgoqBiPDrl5Lkr+fMeTcXtAIYwe8eXLh4mx86M4bj6Y"
+        "JMvXfDX1UAuNTRR4RE+VEZZZEkFRj8VQ2lNUgDvrmaBlYPDxZWCp15lR535pjh+3QN4b/K5oGDyIfAQ8xa0x2HMIptxtFVWU"
+        "vwak1XkDGG8mZ7o28SD1flqOPqhKGNPpQEoXiY54lhDm9GrM8CRM1T3bFeHe0KVHi5VJ2Vwf/PRQBR/+iVJ7immP5hKj20gW"
+        "hOkSVdbopA7kPJ0XV9prDd1vUTn5ECInp3JSNxWEQhr7cYt+CVrmHoWp6QaRBM3OEB2yRQjq21yAtDiSnZpRhT1H9/Fib4ON"
+        "6X2gBPQ0sU5MNxmtedTYcBcDqXqrBpZ9xNZuH2R6wUB28VrS8b8IGZ1PXfvK4tG3ckhdCNeeCxHAkn7RVWRP3UGJh2CRPhJS"
+        "cSuhBcZmbVUXgcvM97Tok2xsGuzNla3BzMW/bc2XEkL0HVgO91Ayx8vhwHsT/sx5lOmKxZrl0fFgUOQfpLmtVpBIvfFHnN6A"
+        "JW+biLPGnzwgZw+rSx/HwfRzCroH5MRMowA04U+GhtrFGsAPEyLoI7jB25pE8tn0pLqAIG6MaRaQTp/MscwFhaSbBAQ2dlQR"
+        "It001bVyAISoWxT5rXVoqP8byD0eQFHPNKJPZ5GZ43NWqO6rCFroJxCO/gaf4U7ysecenDA6y0Rqaw5Hv1U39CdUCm2jFG+c"
+        "olqnm87EODVLfxcF1fcwKO71WrD7OUSE7oCd22+YUedHkET31AUiNgHFvc+i1cALpviz9q1fTtVNz/VVj2IV6GHIqM/BGPdL"
+        "nPStTMSqcQVKsv/Dxy2OXaJRORV6EZO4LQKp5YH08WkVTrZLmAlboZxU9wisEm/ig6sd4izJTtFW53GQbaswKvRBXMY8kxSk"
+        "9Prm7aoorLVgYPGuuzqHO5a5350Qr3IV5WSKR2/KuVoF0ZpbCGi5tyyA2kovhPqAr6HHY4q8A6STDqH21EV3huynEz4cTgM9"
+        "j8MH5UguUJwCC5Q21gbUUNQ1AU+BlqxXgoz+0JPqOyHyRxeHIK1hY4oP5yvwkSqg0+uZOO7CoPh4zz1OhePrt6QwpczyFbrX"
+        "Nr6UIHJ2ByeodQQNhDpE0l3MgomqvsDk6PkgTfm3p6yZxORY6zilZGpUj98GUBG9VgDChtqg56VC7MVtMnB6EAajvyZo7cGA"
+        "ePs/ZGuPxu+2jDK6WA3067N83TqHh2+HxXbaAKkTGovInXUJ8svvmCn6mTly78dD1a4igIYmkQCd86gx51BIZL0VQXQbRZE9"
+        "u2qEKJ0V93QuHtEfNMC4V5iw9yqM7H10isxJoCO4q4I8xVRzZHELLNi50RhRbyGgFc9gQ6ZNKBnTTjP+3skGPT7Pl7bX4/Xq"
+        "rKmwH2NG34/LTYMoK+KDZHJ0jDiBm0UAZvhWfq0XvAh1VR0wfmzhpL3g1jgXOWPeyo243wCH50H6jsYTSoR7bM+P3UFFVRP/"
+        "/MVTOLvpi+foTrasuZ1VWezlSHEFs9Zpoh/bGpp0vZQ7TV+AFRQP7IrzoyQbn2eFvt2ERy6mMkb2X+z8KZN3p+gmPqDqCxvI"
+        "fRwQJ11FNNwyjNh5GKHeKZQGXxAB4mYqoFCcJYST/iCijdZhdjaIriotQKCNDaKBrG9h2PCVS6ib4gi0UZo/J+EBMWOeJsff"
+        "75qWOnJkxdOl6sJq3k8cTOwqvBLcgy5t7xcmr2oaFGMpSP6cSp/UQ5giR4cYvLM/XEDzTfiG34VIUMMwxo8EUKCTicBbVWg4"
+        "7rEjpK0CurQWcRPqISkrOuxrh58wdeV7opqrnRShL1Fgyvohqs7Z2PTYGjRc+Q4K6KGxuNiJm+jxfQoTBP3IXAO7qCoXz+nj"
+        "tgf4c2Mbz1w43okePmbOdiwTGD/GD7UvIqNPy7CyWwkBVtc5XqraKIYCawYpCHUWjR1OKEbxuZ7IvoKnUjM5cdMczpQcDge3"
+        "f4tiXKk4cNIDtGBnY4FR4Lf4udlOZ2EchKp2Hx5U9xDQB50BTh7t4WqMbtH0875hnIaxlcTfqhC97Ktud2ByeisnzR/EYvYX"
+        "AAFj5EBN6km+7LRXhjyPzIL6xR7Y2iaF3Xr1RV1NMPp6OVmWfk4buL2iz9/KJ0z0B9Wq9Aou4qtZq4uVYBE1lQVJVixFc78G"
+        "hTddS0H4FSAVWofMUXfXlZo+SiG2jRSI7SUtL2+1LK5KsBzfA1W5u5AM8idbmisSDeEW62Aa12HhtIkoxFuoBeO/3FB6KoFQ"
+        "0ylVUWtYkR0I4JJLqdQVyAYy7ztidBJQfX8FzN/+WiHq9Y5KT1ya7a6tJ0dB6uq7jKC2B2gD5yrO8PnVGhufV4hvY2Xg8U2O"
+        "yNFJb962UxQ9vxak3SsRGk1Akj7eByTrtzDx4nVc5F+gD93OeGAP2KTh0jkl3wPH5oUGiY9CoN5Xic25k00Xj+Am9YQS+NNg"
+        "SrLGcETzu6KcZ4neidniCHUMKyp/wpqX3RWP0CGmTL/sBDvdYbjneHz4fE0bIc5F+eYWDMM2iBbeZ2Nl99SHMo3ggqJXKaDu"
+        "+Z5VHcMMmQ0Fh22vKp7cCRIYXZVDz6Fw4NsYbPgFX8XMlzYOQM3/+bIUU5+K/sU9OpKquPd7AvcrMmRNBARrexVzbKg1MR7H"
+        "QtG/GPeeBNjS1vDa6SEsbbTegMvrYTN8K7nunWUENZGTkV2AF5YGS+pzIMe6j3vi5jJO6OF4zj0dIy/MTyEhcK2RR3WoGzbP"
+        "A/z6Nk97pi0GUHQqrx6vwrIBn/ap0cQUZvwTCJqcuafPQ0wsdjIi3VKAfVpFlNMzDc12Bgx2sdgS9QEAm+knva1/E3V0P0F4"
+        "xg2aQh9Th7ihBk94l6LqzwnUajADruIuEdE9pAPplc/il6099IUa+R/wc3QWDtknoUxdhR1zzsdvSS8NQrkADPC5oBA7vabA"
+        "tPMFqobBR47reVP1CdiBoo+iTfaV1lvJ8oS7GAeB/8CPmtc54E5PqcFfQBC6nQHJaQ17MjgIOqDWOD9UTcJPyk+gdPoTMBw1"
+        "i7EBnAoIcY6GTc1e4Yz4BwKgsaLBia59bPjW57O6q5AM2i2U+DkShPQ7KBP4QzjRNcoamZc12f7LhT9nw1bkXTBQ9SzZzbk8"
+        "ScVxB3Y7qoU2XUSjsaeCRO0VHgSfDhRiDIgGn/Gq6egu2AS105oVPqOLnS4CG3QToLRGunBma6FwY4wjglCPuCq0j8Zo8UEK"
+        "eHnkM05/mIDIA88cjTiShD8nqV9KaPw0PLJ0iT55tFGcGxvDCVpPhTnGQ3SRuY86Os0hiwo6y8caRyGM0s8EkhP/UcFtLyXl"
+        "eC4eRE1s0fUvwv58CRQb30el6ZfGii7DiNkfeXNc2Wwdn04C05eRZml6wY5iLGjsiwUcHmpM5q+4i0hG7xIX9a4f1J0JhdFE"
+        "Py+vgwPpHrsKgG5xZ5AWFpHpERFgaSI+M75KCX0sorBSJ9KabRRp4lxGDepTBWIzHilU3Bjwiv5PBHEb/WD9hwvSpxLnS285"
+        "ENVVamI3CrvSRxIA/pwHuXfL29MlOFzRU087r6UGlPcFGr4WPnO+o8jcEwJAmfaCIebBBPOTobvSGYnxoxTx7SMx6Xsh0txJ"
+        "eljQRRLDGABoiq9XB07rMr4PQe7OKKVIUeqE2dMmgEjfRmCsxwvWVW2kPW70E/TNkUCF+JG5uH2Amp0nQYzGdqFH7KkhrGfL"
+        "c6e7chQ1CxfcHV6woMdwTIljLKktvODtbwzZeZQfRS+kp9VEQWVaAA0+7BVZdzSGoaGOgUCfVspoxik7jrGaLXWegA6jNqDK"
+        "n+mbP6lXad002BgUf0vh5ZuUFf0bCbZex7T0lgp39AkxbbYKD38fJWLOiOWu+FR3qtppBR5TDliQ7igdYJpozIQeG7TiWbRy"
+        "UzF5xCTujo4FgTb3AMnmf2o0oMeGYPkU4shpo2EJjifc+zo4PZebo7efyvxYNcAJ9QCb+Ea6qPrDEz4tQBCxXcRCn7kUVdKf"
+        "kyY7mTbQYzR03yVQD3fgTHYJ8pwW4EWLf4DL+Cj07b9b0nA4b5VWoaVqi7nAsu6BHv+LRJ/NQomML5WYbRVOxicLJF3RBqAa"
+        "N9CiriSYoToRITeNdELu2UF7/mZLUT8diWkQY39x3lvzQ2AAKbsEsb0nzyvCDUfWLUl7OjjBYESng0sjDBgcQjz+ABnRoQH2"
+        "B2hLEF36GLEEhNYaizMqOLyiYgCXGVj5GfMmZNNnjhJIWwQGaAhdDK2hFYAH1GEDxo3uxB6XGyL2BrTJfGEWCrNQJtwy4VbJ"
+        "wkclCx+bzBdmoUy4bTLf7CpZ+Hi2ZNHcJvN9YRbKhNsm820yXybc5hdmoS8TbvPZkkVLtizsdJXPnGxZ2Okqn/lsyaLlZMvC"
+        "Tlf5zGdLFi27TeabXSULH3OyZWGnq3zmlwm3+WzJomVXycLHfLZk0fILs9CMXKYlWxZ25hdmoTnZsrDTVT6zq2ThY3aVLHzM"
+        "L8xCc7JlYaerfGa3yXwzcpmWbFnYmZHLtGTLws6MXKYlWxZ2ZuQyLdmysDO/MAvNZ0sWLb8wC80vE26z22S++WzJomVXycLH"
+        "jFymJVsWdma3yXwzcpmWbFnYmZHLtGTLws7sNplvfplwm10lO3TML8xCM3KZlmzZPs78wiw0vzALzS8TbrPbZL75hVloPluy"
+        "aNltMt/sKln4mM+WLFp2m8w3u03mm90m883JloWdrvKZX5iFZrfJfDNymZZsWdiZXybcZuQyLdmysDOfLVm0/DLhNrtN5ptd"
+        "JQsf88uE25xsWdjpKp/5hVlodpvMNyOXacmWhZ3ZbTLf7DaZb36ZcJtdJQsfc7JlYaerfGa3yXyzq2ThY062LOx0lc+cbFnY"
+        "6SqfGblMS7Ys7MwvzEIzcpmWbFnYmZMtCztd5TO/TLjNbpP55hdmoRm5TEu2LOzML8xCs9tkvhm5TEu2LOzMLxNuc7JlYaer"
+        "fGbkMi3ZsrAzJ1sWdrrKZ3abzDefLVm07CpZ+JjPlixaPluyaBm5TEu2LOzML8xCM3KZlmxZ2JmTLQs7XeUzvzALzchlWrJl"
+        "YWd+YRaaX5iFZrfJfHOyZWGnq3xmV8nCx4xcpiVbFnbmF2ah+WzJouWzJYuWXSULH/PZkkXLZ0sWLbtN5utGruo2h/xnewDB"
+        "BJ2vuHkrVb52B7IsbzKAsv+TQF+M9pS6EzEbjxR1tQ3IO/NFZogO54XURpFV5I20Ua/Azp6VSo7mLnHnwolTjr7kxw+NgciK"
+        "N+Khtt7go3qeCFmTaDJkTQqM/muG+ARInVYmUYRfCMPbnnKpbC68pj/iI+sOUIGu5ABBFsQlUh8MoqdfQBl1BzcZtIkx46+A"
+        "0/hO7Et7cSFtEx5ccQ8cycdAtf0SND8GTju9hCdvX7nJWZnQIWovNSVoJDwsqxJkdRtFyfFUStVHEiLHRJYI9YUadm8l2kMz"
+        "MfnpEiLs6Q1FuWnc8uhtUk3aalCfNirxFrchib5VktGHyA031HDHfzFz02EgxIxWRtLYztjU6wQinlmDupmqvnaGGm0ezoW/"
+        "PJu6nDx/+4hvjUOxAEyBrqjhNk2p/b8D0QQEIQallFSYDhJoIBgIlExDBDhFCDGEEEKIgBAiKMIjhBCCnFsP0xhtZSDgMnlO"
+        "Mr+eZNp2e0gJEc0+Nzwb+pGjm25RUymJrmZmobpqSNEYFNNMInmgIsc4XRmZXhEEn+mBGoEIdhiEqD8R1tKxzaSYSF91SWVi"
+        "PKlGwifaVp4mybIEuRD/LLpCXPgZsZab1lHLbMPTqCXLCH8PKRDAf6hkSgk+suaadi0yMaUCsdcgKCjWNELimOGTNi8AC1vJ"
+        "vJZrtE0TCvZ4QwypKmm4vs5f5K68GbqphaBvbww1DteQHkBruD2pRcMcoUiWYpBI4OmKpZlCQypcAHttFp5YD0rbJCl1uhch"
+        "SPYbqN0AOXouZYhTZphnT4GYShKEVCqCEt6BzLerJiWVsyK6SzS+H8EDniTBjYJptxpBkKN/YPNYUVSrFRQKimUBwdbqGc6t"
+        "7uSpCMGJ0xxgC0il4xfpMxAFGkRLx7EbQAcltGMhpgHP80ksMeYHCjcyJA7Ul3JZcTbkBWUCwGq1bZ/aLNFaYzDBmgE1Dow+"
+        "zlwFB0rxSgUvGeEiAkaVo8m57TcE68sk3uovtIUiU/EK4MusuEFmt6SnONCtQgUZHHKxGGQ4HnyCGU7jClcozer9CVk7Hnbt"
+        "Vu9GMmRNURrxmjYl9bBosrJhBbX21aGbmt6a+KQZG3oKS/NJdXBQKVSw+2XwMD0BJ4kwhSBxa7jO8or+wZe9yB+edH888ZsH"
+        "hkYfBWHW8ZPJfQFNI1G/GXjf8RUQaAcCILO1oCYOG4T1ZgxWgRYKEFFDUjaq3V3GwJADgekRKSjP2b/EMB/50wsCJ1CTxc+j"
+        "Vkq52QgtYUNKZmxAGMYO8FQ3NwJzXuq6KHy4GaYUWHpvLTKhJBNkGWYCi7imQHqUzUV8KVHYAk5goLxGcS06QtaJASiYqchn"
+        "mkXpWCmlKOs1UP4mLZQjo56JLlTCehf11SRi7lwTBHl8XiMWY+6Qz9smqOFkEiGbQURoGAsWEIuZ1PGJIV+h5k8dSI0QBSuY"
+        "GAA7ZAXIEHslLYLbmZ25cG3TG6MZNfqAGXm+6OjDvoMgDcxcZoaP4O8a1k/CTpL1Hj5tWACT5k8aSqdbKNQf8nAkHt6dPPGa"
+        "weHL2oGk5uUPdJg9RdwkkivOxLcN1F7Zs6Wj6LKZ5cRvkgMpd0InRBQ2VCIM5c08fYZL/TO02cg90GTWBzT2W527eWCdDkHI"
+        "JdLMVQ==")),
+}
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"FAILED: {msg}")
@@ -262,28 +610,37 @@ def phase_device():
 
 
 def phase_build():
-    """Both CUDA sources and the native reader's C++ source at once (one
-    nvcc or g++ each), then the libraries loaded."""
+    """Both CUDA sources and the two host libraries' C++ sources (the native
+    reader, the zstd decoder) at once (one nvcc or g++ each), then the
+    libraries loaded.  Returns the kernel modules and the seconds the zstd
+    decoder's build took."""
     import importlib
     from concurrent.futures import ThreadPoolExecutor
 
     from umetrack_torch.data import native
     from umetrack_torch.ops import _build
+    from umetrack_torch.utils import _zstd
+
+    def timed(build, name):
+        t = time.perf_counter()
+        return build(name), time.perf_counter() - t
 
     wp_mod = importlib.import_module("umetrack_torch.ops.warp_pool")
     wi_mod = importlib.import_module("umetrack_torch.ops.warp_image")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        io_path = pool.submit(_build.build_host, native.NAME)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        hosts = [pool.submit(timed, _build.build_host, name) for name in (native.NAME, _zstd.NAME)]
         paths = list(pool.map(lambda name: _build.build(name, verbose=True),
                               (wp_mod.NAME, wi_mod.NAME)))
-        paths.append(io_path.result())
+        hosts = [h.result() for h in hosts]
+    paths += [path for path, _ in hosts]
     wp_mod._library()
     wi_mod._library()
     native.load_library()
+    _zstd.load_library()
     log(f"[build] {', '.join(os.path.relpath(p, HERE) for p in paths)} "
         f"in {time.perf_counter() - t0:.2f} s")
-    return wp_mod, wi_mod
+    return wp_mod, wi_mod, hosts[1][1]
 
 
 def touched_source_bytes(pool, coords, src_idx):
@@ -1364,6 +1721,98 @@ def phase_checkpoint(card):
     return model_cpu, model_cuda
 
 
+def phase_orbax(ckpt_cuda, tally, rigs, seqs, hands, build_s, card):
+    """Orbax-format checkpoints: the zstd decoder's build; the embedded
+    frames (``ZSTD_FRAMES``) decoded to their content, alone and
+    concatenated, and a damaged checksum refused; the trained checkpoint
+    written as an orbax directory by the port and read back bit for bit
+    (bytes on disk, write and read times beside the ``.msgpack`` load);
+    ``load_model_cli`` on that directory, whose parameters equal the
+    ``.msgpack`` model's, and the batched tracker at the bench shape with
+    each (one ``warp_pool`` launch a call, counted by ``tally``): the same
+    poses."""
+    import base64
+
+    import torch
+    from umetrack_torch.apps.common import load_model_cli
+    from umetrack_torch.tracker import HandTracker
+    from umetrack_torch.utils import _zstd
+    from umetrack_torch.utils.checkpoints import load_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+    log(f"[orbax] csrc/zstd_decode.cpp built by g++ in {build_s:.2f} s (beside the nvcc builds)")
+    frames, contents = [], []
+    for name, (seed, size, level, checksum, sized, b64) in ZSTD_FRAMES.items():
+        frame, want = base64.b64decode("".join(b64)), zstd_frame_content(seed, size)
+        flags = frame[4]
+        check(bool(flags & 0x04) == checksum and bool(flags >> 6 or flags & 0x20) == sized,
+              f"zstd frame {name}: header flags {flags:#x}")
+        t0 = time.perf_counter()
+        got = _zstd.decompress(frame)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got == want, f"zstd frame {name}: {len(got)} bytes decoded, not the {size} of its content")
+        log(f"[orbax] zstd frame ({name}, seed {seed}): {len(frame)} -> {size} bytes, equal to "
+            f"zstd_frame_content; {ms:.2f} ms")
+        frames.append(frame)
+        contents.append(want)
+    check(_zstd.decompress(b"".join(frames)) == b"".join(contents), "concatenated zstd frames")
+    damaged = bytearray(frames[0])
+    damaged[-1] ^= 0xFF  # the XXH64 checksum
+    try:
+        _zstd.decompress(bytes(damaged))
+        refused = False
+    except _zstd.ZstdError:
+        refused = True
+    check(refused, "a frame with a damaged checksum decoded")
+    log(f"[orbax] the {len(frames)} frames concatenated decode to their contents in order; a damaged "
+        f"checksum raises")
+
+    t0 = time.perf_counter()
+    sd = load_checkpoint(CHECKPOINT)
+    msgpack_ms = (time.perf_counter() - t0) * 1e3
+    leaves = [k for k in sd if not k.endswith("num_batches_tracked")]
+    n_bytes = sum(sd[k].numel() * sd[k].element_size() for k in leaves)
+    with tempfile.TemporaryDirectory(prefix="umetrack_orbax_") as tmp:
+        path = os.path.join(tmp, "final")
+        t0 = time.perf_counter()
+        save_checkpoint(path, sd)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        back = load_checkpoint(path)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        check(len(leaves) == 213 and set(back) == set(sd), f"orbax round trip: keys {len(back)}")
+        unequal = [k for k in sd if not torch.equal(back[k], sd[k])]
+        check(not unequal, f"orbax round trip: leaves differ: {unequal[:5]}")
+        log(f"[orbax] {os.path.relpath(CHECKPOINT, HERE)} ({len(leaves)} leaves, {n_bytes} bytes of "
+            f"f32) written by the port as an orbax directory: {disk} bytes on disk in "
+            f"{sorted(os.listdir(path))}, write {write_ms:.1f} ms, read back {read_ms:.1f} ms "
+            f"({disk / read_ms / 1e3:.1f} MB/s, stored zstd blocks), all {len(leaves)} leaves bit for "
+            f"bit; the .msgpack load {msgpack_ms:.1f} ms [{card}]")
+        model_dir = load_model_cli(path, device="cuda")
+    ours, ref = model_dir.state_dict(), ckpt_cuda.state_dict()
+    check(set(ours) == set(ref) and all(torch.equal(ours[k], ref[k]) for k in ref),
+          "load_model_cli(directory) parameters differ from the .msgpack model's")
+    results = []
+    for label, model in (("directory", model_dir), (".msgpack", ckpt_cuda)):
+        tracker = HandTracker(model, device="cuda")
+        res, _ = tally(lambda: tracker.track_sequences_batched(rigs, seqs, hands), 1,
+                       f"orbax: track_sequences_batched, {label} weights")
+        results.append(res)
+    a, b = results
+    check(bool(torch.isfinite(a.joint_angles).all()) and bool(a.valid.any()), "orbax tracker output")
+    da = float((a.joint_angles - b.joint_angles).abs().max())
+    dw = float((a.wrist_xfs[..., :3, 3] - b.wrist_xfs[..., :3, 3]).abs().max()) * 1e3
+    check(torch.equal(a.valid, b.valid) and da <= ANGLE_TOL and dw <= WRIST_TOL_MM,
+          f"orbax tracker: directory against .msgpack weights {da} rad, {dw} mm")
+    s, t = seqs.gt_confidences.shape[:2]
+    log(f"[orbax] load_model_cli(<directory>, device='cuda'): parameters equal the .msgpack model's bit "
+        f"for bit; track_sequences_batched S={s} T={t} with each: gap {da} rad, {dw} mm "
+        + ("(bit for bit)" if da == 0.0 and dw == 0.0 else
+           f"(nonzero: cuDNN's algorithm choice; held at {ANGLE_TOL} rad, {WRIST_TOL_MM} mm)")
+        + f", one warp_pool launch a call; the phase took {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def phase_streaming(wp_mod, models, tally, card):
     """``track_frame`` looped over a rendered sequence with a confidence
     dropout against ``track_sequence``, both heads, for each of ``models``
@@ -1964,8 +2413,8 @@ def phase_resident(wp_mod, wi_mod, card):
 def phase_train_app(wp_mod, wi_mod, card):
     """``apps/train.py::main`` on synthetic 120 x 160 batches (one
     ``warp_image_full`` launch a batch) and on a 480 x 640 idx/bin training
-    tree (one ``warp_image_windowed`` launch a batch); the final
-    ``.msgpack`` loads back and its forward equals the trained model's; then
+    tree (one ``warp_image_windowed`` launch a batch); the final orbax
+    directory loads back and its forward equals the trained model's; then
     the synthetic run in bf16 (the JSON config's ``model.compute_dtype``).
     Returns the launches."""
     import torch
@@ -1985,9 +2434,10 @@ def phase_train_app(wp_mod, wi_mod, card):
         check(counts_syn == (0, APP_STEPS, 0),
               f"train app, synthetic: launches (pool, full, windowed) {counts_syn} in {APP_STEPS} batches")
         check(all(math.isfinite(v) for v in hist), f"train app, synthetic: loss {hist}")
-        check(os.listdir(ckpts) == ["final.msgpack"], f"checkpoints {os.listdir(ckpts)}")
+        check(os.listdir(ckpts) == ["final"] and os.path.isfile(os.path.join(ckpts, "final", "_METADATA")),
+              f"checkpoints {os.listdir(ckpts)}: the orbax directory final expected")
         loaded = UmeTrackNet(ModelConfig())
-        loaded.load_state_dict(load_checkpoint(os.path.join(ckpts, "final.msgpack")))
+        loaded.load_state_dict(load_checkpoint(os.path.join(ckpts, "final")))
         loaded = loaded.cuda().eval()
         trained = state.model.eval()
         batch = next(app.synthetic_batches(4, (96, 96), device="cuda"))
@@ -2001,8 +2451,8 @@ def phase_train_app(wp_mod, wi_mod, card):
         check(gap == 0.0, f"the reloaded checkpoint's forward differs by {gap}")
         log(f"[train-app] main --synthetic --steps {APP_STEPS} --batch-size 32 --window 8, full "
             f"ModelConfig() f32: {t_syn / 1e3:.1f} s ({APP_STEPS / t_syn * 1e3:.2f} steps/s with start-up), "
-            f"loss {hist[0]:.4f} -> {hist[-1]:.4f}, one warp_image_full launch per batch; final.msgpack "
-            f"reloaded: eval-mode forward equal bit for bit [{card}]")
+            f"loss {hist[0]:.4f} -> {hist[-1]:.4f}, one warp_image_full launch per batch; the orbax "
+            f"directory final reloaded: eval-mode forward equal bit for bit (gap {gap}) [{card}]")
 
         # the same in bf16: the JSON config's model.compute_dtype says so
         cfg16 = os.path.join(tmp, "bf16.json")
@@ -2089,8 +2539,9 @@ def phase_train_kernels(wp_mod, wi_mod, card):
 
 def phase_distill(wp_mod, wi_mod, card):
     """``run_distillation`` with a ``.torch`` teacher written from the
-    trained checkpoint under the original model's names: finite gaps and
-    the evaluation metric set.  Returns the launches of the two kernels."""
+    trained checkpoint under the original model's names: finite gaps, the
+    evaluation metric set and the JAX app's ``ckpt_step_*`` orbax
+    directories.  Returns the launches of the two kernels."""
     import torch
     from umetrack_torch.apps import distill
     from umetrack_torch.models.convert import reference_module_names
@@ -2101,21 +2552,27 @@ def phase_distill(wp_mod, wi_mod, card):
         path = os.path.join(tmp, "teacher.torch")
         torch.save({f"{names[k.rsplit('.', 1)[0]]}.{k.rsplit('.', 1)[1]}": v
                     for k, v in load_checkpoint(CHECKPOINT).items()}, path)
+        out = os.path.join(tmp, "out")
         reset_launches(wp_mod, wi_mod)
         t_ms, (gaps, final) = wall_ms(lambda: distill.run_distillation(
-            steps=DISTILL_STEPS, batch_size=8, eval_every=5, teacher_checkpoint=path,
+            steps=DISTILL_STEPS, batch_size=8, eval_every=5, teacher_checkpoint=path, out_dir=out,
             n_eval_sequences=DISTILL_EVAL_SEQS, device="cuda"))
         counts = launches(wp_mod, wi_mod)
+        want = [f"ckpt_step_{step:07d}" for step in list(range(0, DISTILL_STEPS, 5)) + [DISTILL_STEPS - 1]]
+        check(sorted(os.listdir(out)) == want, f"distillation checkpoints {sorted(os.listdir(out))}")
+        student = load_checkpoint(os.path.join(out, want[-1]))
     check(counts == (2 * DISTILL_EVAL_SEQS, DISTILL_STEPS + 1, 0),
           f"distillation: launches (pool, full, windowed) {counts}")
     check(len(gaps) == DISTILL_STEPS // 5 + 1 and all(math.isfinite(g) for g in gaps), f"gaps {gaps}")
+    check(all(bool(torch.isfinite(v).all()) for v in student.values()), "the last student checkpoint")
     keys = ("mpjpe_mm", "mpjpa_deg", "pck_auc", "success_rate", "mean_keypoint_acceleration")
     check(all(k in final and math.isfinite(final[k]) for k in keys), f"metric set {final}")
     log(f"[distill] run_distillation steps={DISTILL_STEPS} batch 8, teacher = the checkpoint as a .torch "
         f"file under the original names: {t_ms / 1e3:.1f} s, gaps {', '.join(f'{g:.1f}' for g in gaps)} mm; "
         f"tracked against the teacher on {DISTILL_EVAL_SEQS} rendered sequences: "
         f"{', '.join(f'{k} {final[k]:.4f}' for k in keys)}; launches: warp_image_full {counts[1]} "
-        f"(one a batch), warp_pool {counts[0]} (one a tracked sequence) [{card}]")
+        f"(one a batch), warp_pool {counts[0]} (one a tracked sequence); {len(want)} orbax directories "
+        f"ckpt_step_*, the last reloaded [{card}]")
     return counts
 
 
@@ -2353,7 +2810,7 @@ def main():
         return 2
     t_start = time.perf_counter()
     card = phase_device()
-    wp_mod, wi_mod = phase_build()
+    wp_mod, wi_mod, zstd_build_s = phase_build()
 
     from umetrack_torch.models import ModelConfig, make_model
     from umetrack_torch.tracker import HandTracker
@@ -2400,6 +2857,8 @@ def main():
     eval_shapes = phase_streaming(wp_mod, models, tally, card)
     rigs, seqs, hands = make_sequences(S_BENCH, T_BENCH, seed=0, device="cuda")
     phase_unknown(models, tally, rigs, seqs, hands, card)
+    orbax_tally = LaunchTally(wp_mod.warp_pool)
+    phase_orbax(ckpt_cuda, orbax_tally, rigs, seqs, hands, zstd_build_s, card)
 
     # the batched and sharded evaluation, each entry-point call counted from 0
     batch_tally = LaunchTally(wp_mod.warp_pool)
@@ -2446,7 +2905,7 @@ def main():
         kernel_entry("warp_pool", "umetrack_torch/csrc/warp_pool.cu",
                      "umetrack_tpu/ops/pallas_resample.py:243",
                      {"tracker": pool_launches, "raw_data eval": tally.total,
-                      "batched eval": batch_tally.total,
+                      "batched eval": batch_tally.total, "orbax checkpoint tracker": orbax_tally.total,
                       "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool,
                       "bf16 tracker and batched eval": bf16_tracker_launches,
                       "bf16 raw_data eval": eval16_tally.total},

@@ -148,9 +148,10 @@ def test_to_flax_variables_inverts_from_flax_variables():
 
 
 def test_orbax_directory_unknown_suffix_and_wrong_shapes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
+    # any path but .msgpack / .torch is an orbax directory (the JAX package's rule)
+    with pytest.raises(ValueError, match="no orbax checkpoint"):
         load_checkpoint(str(tmp_path))
-    with pytest.raises(ValueError, match="format"):
+    with pytest.raises(FileNotFoundError):
         load_checkpoint(str(tmp_path / "weights.bin"))
     with pytest.raises(ValueError, match="do not fit the config"):
         load_checkpoint(CKPT, ModelConfig(**SMALL))
@@ -159,8 +160,10 @@ def test_orbax_directory_unknown_suffix_and_wrong_shapes_raise(tmp_path):
         fp.write(_msgpack.packb({"weights": {}}))
     with pytest.raises(ValueError, match="params"):
         load_checkpoint(bad)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no arrays"):
         save_checkpoint(str(tmp_path / "ckpt_dir"), {})
+    with pytest.raises(ValueError, match="torch"):
+        save_checkpoint(str(tmp_path / "state.torch"), make_model(ModelConfig(**SMALL)).state_dict())
 
 
 def test_reference_state_dict_goes_through_the_name_map(tmp_path):

@@ -40,6 +40,18 @@ def test_teacher_round_trip(teacher_file):
         assert torch.equal(loaded[key], value), key
 
 
+def test_teacher_from_a_checkpoint_directory(teacher_file, tmp_path):
+    """An orbax directory (the distillation's own ``ckpt_step_*``) is a
+    teacher as well as a file."""
+    from umetrack_torch.utils.checkpoints import save_checkpoint
+
+    _, model = teacher_file
+    path = save_checkpoint(str(tmp_path / "ckpt_step_0000000"), model.state_dict())
+    loaded = distill.build_teacher(path, device="cpu").state_dict()
+    for key, value in model.state_dict().items():
+        assert torch.equal(loaded[key], value), key
+
+
 @pytest.mark.parametrize("checkpoint", [None, "/nonexistent/teacher.torch"])
 def test_no_teacher_file_raises(checkpoint):
     with pytest.raises(FileNotFoundError, match="teacher"):
@@ -56,5 +68,7 @@ def test_distillation_runs_and_emits_the_metric_set(teacher_file, tmp_path):
     assert final["distill_gap_mm"] == gaps
     for key in METRICS:
         assert key in final and np.isfinite(final[key]), (key, final)
+    # the JAX app's names: orbax directories ckpt_step_{step:07d}
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "ckpt_step_0000000.msgpack", "ckpt_step_0000002.msgpack", "ckpt_step_0000003.msgpack"]
+        "ckpt_step_0000000", "ckpt_step_0000002", "ckpt_step_0000003"]
+    assert all((p / "manifest.ocdbt").is_file() for p in tmp_path.iterdir())

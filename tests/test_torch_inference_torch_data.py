@@ -130,13 +130,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(models, tree, monkeypatch):
         app.main(["--data", tree])
     with pytest.raises(ValueError, match="CUDA"):
         app.run(tree, models[0], device="cpu", sampler="kernel_win")
-    # a checkpoint loads (tests/test_torch_checkpoints.py); a missing file, an
-    # orbax directory and an unknown format raise, and no card still raises
+    # a checkpoint loads (tests/test_torch_checkpoints.py, test_torch_orbax.py);
+    # a missing file, a directory that is no checkpoint and a missing
+    # directory raise, and no card still raises
     with pytest.raises(FileNotFoundError):
         load_model_cli("some.msgpack", device="cpu")
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="no orbax checkpoint"):
         load_model_cli(tree, device="cpu")
-    with pytest.raises(ValueError, match="format"):
+    with pytest.raises(FileNotFoundError):
         load_model_cli("weights.bin", device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         load_model_cli("some.msgpack")

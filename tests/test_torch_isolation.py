@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``umetrack_torch`` and not
-``chip_smoke.py`` imports JAX, flax, msgpack (the port has its own codec) or
-the JAX package; OpenCV is imported only inside the mp4 decoder and the
+``chip_smoke.py`` imports JAX, flax, msgpack (the port has its own codec),
+orbax, tensorstore or zstandard (it has its own zstd decoder and OCDBT
+store) or the JAX package; OpenCV is imported only inside the mp4 decoder and the
 stroke renderer, which nothing on the GPU's path calls; and the kernel
 wrappers take the plain version for CPU tensors."""
 import ast
@@ -17,7 +18,8 @@ from umetrack_torch.ops import warp_image as warp_image_module
 warp_pool_module = importlib.import_module("umetrack_torch.ops.warp_pool")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "msgpack", "umetrack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "msgpack", "umetrack_tpu",
+             "zstandard", "tensorstore")
 # the only functions that may import cv2, by file
 CV2_FUNCTIONS = {
     os.path.join("umetrack_torch", "tracker", "video.py"): {"stream_video_strip"},
@@ -30,6 +32,7 @@ NEW_MODULES = (
     "config.py", "parallel/train.py", "parallel/optim.py", "parallel/resident.py",
     "apps/train.py", "apps/distill.py",
     "parallel/eval.py", "parallel/distributed.py", "parallel/mesh.py", "data/native.py",
+    "utils/_zstd.py", "utils/ocdbt.py", "utils/orbax.py",
 )
 
 

@@ -184,12 +184,18 @@ def test_run_training_learns_and_writes_msgpack_checkpoints(trained):
     assert len(history) == 7 and all(np.isfinite(history))
     assert history[-1] < history[0], history
     assert state.step == 12 and state.optimizer.count == 12
-    assert sorted(os.listdir(ckpts)) == ["final.msgpack", "step_0000010.msgpack"]
+    # the JAX app's names: orbax directories step_{step:07d} and final
+    assert sorted(os.listdir(ckpts)) == ["final", "step_0000010"]
+    for name in ("final", "step_0000010"):
+        assert {"_METADATA", "manifest.ocdbt", "d"} <= set(os.listdir(os.path.join(ckpts, name)))
 
 
-def test_a_port_trained_checkpoint_runs_in_the_jax_package(trained):
-    """final.msgpack loads in the JAX package, and its eval-mode forward
-    equals the port's on the same frame (the model tests' bounds)."""
+@pytest.mark.parametrize("name", ["final", "explicit.msgpack"])
+def test_a_port_trained_checkpoint_runs_in_the_jax_package(trained, tmp_path, name):
+    """The train app's ``final`` directory (through orbax) and an explicit
+    ``.msgpack`` save of the same weights (through flax) load in the JAX
+    package, and its eval-mode forward equals the port's on the same frame
+    (the model tests' bounds)."""
     from umetrack_tpu.models import init_model, make_model
     from umetrack_tpu.models.config import ModelConfig as JModelConfig
     from umetrack_tpu.models.umetrack import FrameInputs as JFrame
@@ -198,11 +204,16 @@ def test_a_port_trained_checkpoint_runs_in_the_jax_package(trained):
     from umetrack_tpu.models.umetrack import UmeTrackNet as JNet
     from umetrack_tpu.utils.checkpoints import load_checkpoint as jload
     from umetrack_torch.models import TemporalState
-    from umetrack_torch.utils.checkpoints import load_checkpoint
+    from umetrack_torch.utils.checkpoints import load_checkpoint, save_checkpoint
 
     cfg, state, _, ckpts = trained
-    path = os.path.join(ckpts, "final.msgpack")
     model = state.model.eval()
+    if name == "final":
+        path = os.path.join(ckpts, name)
+    else:
+        path = save_checkpoint(str(tmp_path / name), model.state_dict())
+        with open(path, "rb") as fp:
+            assert fp.read(1) == b"\x82"  # a msgpack map of two entries, not a directory
     loaded = load_checkpoint(path, cfg.model)
     assert all(torch.equal(v, loaded[k]) for k, v in model.state_dict().items()
                if not k.endswith("num_batches_tracked"))

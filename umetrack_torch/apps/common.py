@@ -110,8 +110,8 @@ def load_model_cli(
     """The model at the full width of ``ModelConfig()`` in the compute dtype
     ``dtype`` resolves to (:func:`resolve_dtype`; parameters stay f32) on
     ``device``, in eval mode, with the weights of ``checkpoint`` (a flax
-    ``.msgpack`` file or a ``.torch`` state dict of the original model) or,
-    without one, seeded random weights."""
+    ``.msgpack`` file, a ``.torch`` state dict of the original model or an
+    orbax checkpoint directory) or, without one, seeded random weights."""
     device = resolve_device(device)
     config = ModelConfig(compute_dtype=resolve_dtype(dtype, device))
     if not checkpoint:

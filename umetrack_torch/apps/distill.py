@@ -5,7 +5,8 @@ original UmeTrack torch model's weights (a ``*.torch`` state dict, loaded
 through ``models/convert.py::from_reference_state_dict``); the student, a
 fresh ``UmeTrackNet``, trains on synthetic crops labelled with the
 teacher's pose outputs.  One command runs the loop (train, periodic
-``.msgpack`` checkpoint, held-out student-teacher gap) and ends with a
+orbax checkpoint directory ``ckpt_step_{step:07d}``, held-out
+student-teacher gap) and ends with a
 tracked evaluation of both on held-out rendered sequences, aggregated into
 the metric set of the evaluation apps (MPJPE mm, MPJPA deg, PCK-AUC 0-50
 mm, success rate, mean keypoint acceleration) with the teacher's poses as
@@ -39,11 +40,12 @@ logger = logging.getLogger(__name__)
 def build_teacher(checkpoint: Optional[str], config: Optional[ModelConfig] = None,
                   device=None) -> UmeTrackNet:
     """The teacher on ``device`` (CUDA unless "cpu"), in eval mode, from a
-    state dict of the original model (``*.torch``) or a ``.msgpack`` file.
-    The JAX package builds a randomly initialised original model when given
-    no file, which needs the original UmeTrack code; the port has none of
-    it, so no file raises."""
-    if not checkpoint or not os.path.isfile(checkpoint):
+    state dict of the original model (``*.torch``), a ``.msgpack`` file or
+    an orbax checkpoint directory.  The JAX package builds a randomly
+    initialised original model when given no checkpoint, which needs the
+    original UmeTrack code; the port has none of it, so no checkpoint
+    raises."""
+    if not checkpoint or not os.path.exists(checkpoint):
         raise FileNotFoundError(
             f"teacher checkpoint {checkpoint!r} not found: pass --teacher <state.torch>, "
             "a state dict of the original UmeTrack model"
@@ -174,7 +176,7 @@ def run_distillation(
             logger.info("step %d: loss=%.5f heldout distill gap=%.2f mm",
                         step, float(metrics["loss"]), gap)
             if out_dir:
-                save_checkpoint(f"{out_dir}/ckpt_step_{step:07d}.msgpack", student.state_dict())
+                save_checkpoint(f"{out_dir}/ckpt_step_{step:07d}", student.state_dict())
 
     final = _tracked_metrics(student, teacher, n_eval_sequences, device)
     final["distill_gap_mm"] = gaps
@@ -188,7 +190,8 @@ def main(argv=None):
     parser.add_argument("--eval-every", type=int, default=50)
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--teacher", default=None,
-                        help="state dict of the original UmeTrack model (*.torch)")
+                        help="the teacher's weights: a state dict of the original UmeTrack "
+                             "model (*.torch), a .msgpack file or an orbax checkpoint dir")
     parser.add_argument("--out", default=None, help="checkpoint directory")
     parser.add_argument("--eval-sequences", type=int, default=2)
     parser.add_argument(

@@ -123,7 +123,9 @@ def add_eval_flags(parser: argparse.ArgumentParser) -> None:
     """The flags both eval apps share."""
     parser.add_argument("--input-dir", default=None, help="UmeTrack_data/raw_data/real root")
     parser.add_argument("--output-dir", required=True)
-    parser.add_argument("--checkpoint", default=None)
+    parser.add_argument("--checkpoint", default=None,
+                        help="orbax checkpoint dir, .msgpack or .torch file "
+                             "(seeded random weights without it)")
     parser.add_argument("--override", action="store_true")
     parser.add_argument("--chunk", type=int, default=64,
                         help="streaming decode/track chunk length (frames)")

@@ -244,7 +244,8 @@ def main(argv=None):
     parser.add_argument("--data", nargs="+", required=True,
                         help="torch_data roots (e.g. .../torch_data/real)")
     parser.add_argument("--checkpoint", default=None,
-                        help="not ported yet: raises (seeded random weights without it)")
+                        help="orbax checkpoint dir, .msgpack or .torch file "
+                             "(seeded random weights without it)")
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--limit-batches", type=int, default=None)
     parser.add_argument("--mode", choices=["multiv", "singlev"], default="multiv")

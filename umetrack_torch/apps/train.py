@@ -9,9 +9,9 @@ generated data, so the loop runs without UmeTrack_data.  With
 ``--coordinator host:port --num-processes N --process-id i`` each process
 joins a ``torch.distributed`` group and trains on its block of every global
 batch (NCCL between cards, gloo with ``--device cpu``).  Checkpoints are
-flax ``.msgpack`` files (``{dir}/step_{step:07d}.msgpack`` and
-``{dir}/final.msgpack``), which the JAX package loads too.  Runs on the GPU
-unless ``--device cpu`` is given.
+orbax directories, as the JAX app writes them (``{dir}/step_{step:07d}``
+and ``{dir}/final``; ``utils/orbax.py``), which the JAX package loads too.
+Runs on the GPU unless ``--device cpu`` is given.
 
     python -m umetrack_torch.apps.train --synthetic --steps 100 [--window 8] [--device cpu]
 """
@@ -336,7 +336,8 @@ def run_training(
     device=None,
 ):
     """Train a fresh model of ``cfg.model`` (or the weights of
-    ``init_checkpoint``) on ``device`` (CUDA unless "cpu") for ``num_steps``
+    ``init_checkpoint``: a ``.msgpack`` or ``.torch`` file or an orbax
+    directory) on ``device`` (CUDA unless "cpu") for ``num_steps``
     batches (default ``cfg.train.num_steps``): AdamW with global-norm
     clipping at 1.0, a constant or warmup-cosine learning rate.  Batches
     are built one or two ahead in a host thread.  Under a process group
@@ -398,9 +399,9 @@ def run_training(
                 float(metrics["landmark_nll"]), (step + 1) / (time.time() - t_start),
             )
         if writes_checkpoints and step > 0 and step % cfg.train.checkpoint_every == 0:
-            _checkpoint(model, f"{cfg.train.checkpoint_dir}/step_{step:07d}.msgpack")
+            _checkpoint(model, f"{cfg.train.checkpoint_dir}/step_{step:07d}")
     if writes_checkpoints:
-        _checkpoint(model, f"{cfg.train.checkpoint_dir}/final.msgpack")
+        _checkpoint(model, f"{cfg.train.checkpoint_dir}/final")
     return state, history
 
 

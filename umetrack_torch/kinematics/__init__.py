@@ -7,6 +7,7 @@ from .hand import (
     NUM_LANDMARKS_PER_HAND,
     from_dict,
     load_generic_hand_dict,
+    load_hand_model_json,
     mirrored_hand_model,
     neutral_joint_angles,
     scaled_hand_model,
@@ -24,6 +25,7 @@ __all__ = [
     "NUM_LANDMARKS_PER_HAND",
     "from_dict",
     "load_generic_hand_dict",
+    "load_hand_model_json",
     "mirrored_hand_model",
     "neutral_joint_angles",
     "scaled_hand_model",

@@ -77,6 +77,14 @@ def from_dict(
     )
 
 
+def load_hand_model_json(
+    path: str, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
+) -> HandModel:
+    """The hand model of a label-schema JSON file (JAX ``load_hand_model_json``)."""
+    with open(path) as fp:
+        return from_dict(json.load(fp), device=device, dtype=dtype)
+
+
 def load_generic_hand_dict(path: str = GENERIC_HAND_JSON) -> Dict[str, Any]:
     with open(path) as fp:
         return json.load(fp)

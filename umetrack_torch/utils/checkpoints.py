@@ -5,8 +5,10 @@ Counterpart of ``umetrack_tpu/utils/checkpoints.py`` and of
 a flax state dict (``{"params", "batch_stats"}`` with array leaves), read
 and written with the port's own codec (``data/_msgpack.py``) and carried to
 and from the port's state dict by ``models/convert.py``; a ``.torch`` file
-is a state dict of the original UmeTrack torch model.  A directory is the
-JAX package's orbax format, which the port does not read.
+is a state dict of the original UmeTrack torch model.  Any other path is
+the JAX package's orbax directory (``StandardCheckpointer``: OCDBT and
+zarr v2), read and written by ``utils/orbax.py`` without orbax, the same
+rule as the JAX package's (``.msgpack`` -> flax, anything else -> orbax).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from ..data import _msgpack
+from . import orbax
 from ..models.config import ModelConfig
 from ..models.convert import (
     from_flax_variables,
@@ -27,14 +30,10 @@ from ..models.convert import (
 
 def load_checkpoint(path: str, config: Optional[ModelConfig] = None) -> Dict[str, torch.Tensor]:
     """A state dict for ``UmeTrackNet(config)`` from a ``.msgpack`` (flax)
-    or ``.torch`` (original model) file, with names and shapes checked
-    against ``config`` (default ``ModelConfig()``)."""
+    file, a ``.torch`` (original model) file or an orbax checkpoint
+    directory (any other path), with names and shapes checked against
+    ``config`` (default ``ModelConfig()``)."""
     config = config or ModelConfig()
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory, i.e. an orbax checkpoint: the orbax format is "
-            "not ported; save it as a .msgpack file with the JAX package first"
-        )
     if path.endswith(".msgpack"):
         with open(path, "rb") as fp:
             variables = _msgpack.unpackb(fp.read())
@@ -45,17 +44,26 @@ def load_checkpoint(path: str, config: Optional[ModelConfig] = None) -> Dict[str
         with open(path, "rb") as fp:
             sd = torch.load(fp, map_location="cpu", weights_only=True)
         return from_reference_state_dict(sd, config)
-    raise ValueError(f"unknown checkpoint format {path!r}: use a .msgpack or .torch file")
+    variables = orbax.read_standard_checkpoint(path)
+    if "params" not in variables:
+        raise ValueError(f"{path} holds no flax variables (no 'params' entry)")
+    return from_flax_variables(variables, config)
 
 
 def save_checkpoint(path: str, state_dict) -> str:
-    """Write a port state dict as a flax ``.msgpack`` file, byte for byte
-    what ``flax.serialization.to_bytes`` writes for the same variables.
-    The bytes go to a temporary file in the target's folder, which then
-    replaces the target in one step: a run killed mid-write leaves the
-    previous checkpoint whole and no partial file behind."""
+    """Write a port state dict as flax variables: a ``.msgpack`` path gets
+    a flax file, byte for byte what ``flax.serialization.to_bytes`` writes
+    for the same variables; any other path an orbax directory that the JAX
+    package's ``load_checkpoint`` restores (``utils/orbax.py``), replacing
+    an existing one.  Either is written beside the target first and then
+    takes its place: a run killed mid-write leaves the previous checkpoint
+    whole.  A ``.torch`` path is refused: that is the original model's
+    format, which the port reads but does not write."""
+    if path.endswith(".torch"):
+        raise ValueError(f"{path!r}: the port writes .msgpack files or orbax directories, "
+                         "not the original model's .torch state dicts")
     if not path.endswith(".msgpack"):
-        raise NotImplementedError(f"{path!r}: only the .msgpack format is ported")
+        return orbax.write_standard_checkpoint(path, to_flax_variables(state_dict))
     folder = os.path.dirname(path) or "."
     os.makedirs(folder, exist_ok=True)
     data = _msgpack.packb(to_flax_variables(state_dict))
