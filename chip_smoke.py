@@ -117,7 +117,22 @@ exits non-zero without a result line:
    ``warp_image_windowed`` launch a batch); ``run_distillation`` with the
    checkpoint as a ``.torch`` teacher (finite gaps and metric set, its
    ``ckpt_step_*`` orbax directories);
-11. a ``{"kernels": [...]}`` line, then the last line
+11. ``[accuracy]``: the accuracy workflow's drivers (``umetrack_torch/
+   scripts/``) at the full width of ``ModelConfig()`` in a temporary
+   folder: ``resident_train gen`` (16 + 4 capsule-rendered sequences x 16
+   frames, one ``warp_pool`` launch a sequence; the npz cache read back
+   equals the entries' corpus at float16 rounding), ``probe`` in bf16 on 4
+   sequences and ``train`` for 40 steps (loss and eval MPJPE fall, the
+   history keys of ``checkpoints/history_train.json``, the checkpoint
+   reloads, the inline diagnosis), ``diagnose_ckpt`` against the inline
+   diagnosis, ``accuracy_loop eval`` with ``checkpoints/synthetic_r5.msgpack``
+   (the round-5 capsule-domain checkpoint) over the four cells at 2
+   sequences x 64 frames (the table printed; finite metrics and a success
+   rate above 0 are the gates) and one cell with the port-trained
+   checkpoint, and ``accuracy_loop corpus`` -> ``train`` (one
+   ``warp_image_full`` launch a batch, the kernel held against its plain
+   version at that shape) -> ``train-tracker``;
+12. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs CUDA and the repository around it; without either it exits
@@ -207,6 +222,19 @@ BF16_LOOP_TRAINED = Bounds(2e-2 + TRAINED.angle, 2.0 + TRAINED.mm, SCALE_TOL, TR
 BF16_CPU = Bounds(2e-2, 2.0, SCALE_TOL, CHUNKED_TOL_MM)
 RES_BF16_STEPS = 16  # run_resident_training in bf16
 APP_BF16_STEPS = 2  # the train app in bf16
+# the accuracy workflow's drivers (umetrack_torch/scripts/): the resident
+# cache, probe and full run at full width, the four-cell eval with the
+# round-5 capsule checkpoint, and the torch_data loop at a tiny size
+ACC_TRAIN, ACC_EVAL, ACC_T = 16, 4, 16
+ACC_PROBE_SEQS, ACC_PROBE_STEPS, ACC_PROBE_EVAL = 4, 50, 25
+ACC_STEPS, ACC_EVAL_EVERY = 40, 20
+ACC_EVAL_SEQS, ACC_EVAL_FRAMES = 2, 64
+R5_CHECKPOINT = os.path.join(HERE, "checkpoints", "synthetic_r5.msgpack")
+# diagnose_ckpt (a fresh model loading the saved checkpoint) against the
+# inline diagnosis (the trained model) on the same card: the same weights
+# and inputs, so only a different choice of cuDNN algorithm could part them
+DIAGNOSE_RTOL = 1e-4
+LOOP_SEQS, LOOP_T, LOOP_STEPS, LOOP_BATCH = 4, 8, 2, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
@@ -2785,6 +2813,222 @@ def phase_bf16_resident(corpus, f32_step_ms, card):
         f"{f32_step_ms:.1f}), peak mem {peak:.2f} GiB; parameters f32 [{card}]")
 
 
+def phase_accuracy(wp_mod, wi_mod, card):
+    """The accuracy workflow's drivers (``umetrack_torch/scripts/``) at the
+    full width of ``ModelConfig()``, in a temporary folder: ``resident_train
+    gen`` (one ``warp_pool`` launch a sequence; the cache read back equals
+    the corpus of the entries in memory at float16 rounding), ``probe`` in
+    bf16 and ``train`` (loss and eval MPJPE fall, the JAX history keys, the
+    checkpoint reloads, the inline diagnosis), ``diagnose_ckpt`` against
+    the inline diagnosis, ``accuracy_loop eval`` over the four cells with
+    the round-5 capsule checkpoint and one cell with the port-trained one,
+    and ``accuracy_loop corpus`` -> ``train`` (one ``warp_image_full``
+    launch a batch) -> ``train-tracker``, each checkpoint loading in the
+    next.  Every driver call is counted from 0.  Returns the launches by
+    path and the full kernel's row at the loop's training shape."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from umetrack_torch.apps import load_eval, run_eval_known_skeleton
+    from umetrack_torch.models import ModelConfig, UmeTrackNet
+    from umetrack_torch.parallel import resident
+    from umetrack_torch.scripts import accuracy_loop, diagnose_ckpt, resident_train
+    from umetrack_torch.utils.checkpoints import load_checkpoint
+
+    t_phase = time.perf_counter()
+    by_path = {}
+
+    def driven(fn, want, label):
+        """``fn()`` with the launch counters set to 0 just before and read
+        just after; (pool, full, windowed) must equal ``want``.  What the
+        driver prints (its JSON) is dropped: the phase logs its own lines."""
+        reset_launches(wp_mod, wi_mod)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        got = launches(wp_mod, wi_mod)
+        check(got == want, f"{label}: launches (pool, full, windowed) {got}, expected {want}")
+        by_path[label] = got
+        return out, s
+
+    def summaries_of(root):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return load_eval.main(["--results-root", root])
+
+    cache_before = resident_train.CACHE
+    with tempfile.TemporaryDirectory(prefix="umetrack_accuracy_") as root:
+        resident_train.CACHE = os.path.join(root, "resident")
+        out = os.path.join(root, "out")
+        ckpt = os.path.join(out, "resident.msgpack")
+        dims = ["--n-train", str(ACC_TRAIN), "--n-eval", str(ACC_EVAL), "--t", str(ACC_T)]
+        try:
+            # (a) the corpus cache
+            (entries, entries_e), s = driven(
+                lambda: resident_train.main(["gen"] + dims + ["--device", "cuda"]),
+                (ACC_TRAIN + ACC_EVAL, 0, 0), "resident_train gen")
+            gaps = []
+            for tag, ents in ((f"train_{ACC_TRAIN}_{ACC_T}", entries), (f"eval_{ACC_EVAL}_{ACC_T}", entries_e)):
+                rounded = [dict(e, images=e["images"].astype(np.float16).astype(np.float32)) for e in ents]
+                want = resident.build_resident_corpus(rounded, device="cuda")
+                got = resident_train.load_corpus(tag, device="cuda")
+                pairs = [(name, a, getattr(got, name)) for name, a in want.__dict__.items()
+                         if torch.is_tensor(a)]
+                pairs += [(f"hand.{name}", a, getattr(got.hand, name))
+                          for name, a in want.hand.__dict__.items() if a is not None]
+                for name, a, b in pairs:
+                    check(a.dtype == b.dtype and torch.equal(a, b),
+                          f"{tag}: load_corpus's {name} differs from the entries'")
+                gaps.append(max(float(np.abs(e["images"].astype(np.float16).astype(np.float32)
+                                             - e["images"]).max()) for e in ents))
+            log(f"[accuracy] resident_train gen --n-train {ACC_TRAIN} --n-eval {ACC_EVAL} --t {ACC_T}: "
+                f"{s:.1f} s, one warp_pool launch a sequence; load_corpus of the npz cache equals the "
+                f"corpus of the entries in memory with the images at float16 rounding (that rounding "
+                f"moved a crop pixel by at most {max(gaps):.2e}) [{card}]")
+            del entries, entries_e
+
+            # (b) the overfit probe in bf16
+            probe, s = driven(lambda: resident_train.main(
+                ["probe"] + dims + ["--probe-seqs", str(ACC_PROBE_SEQS), "--steps", str(ACC_PROBE_STEPS),
+                                    "--log-every", "5", "--eval-every", str(ACC_PROBE_EVAL),
+                                    "--device", "cuda", "--out-dir", out]),
+                (0, 0, 0), "resident_train probe")
+            evals = [h for h in probe if "eval_mpjpe_mm" in h]
+            check(all(math.isfinite(h["loss"]) for h in probe), "probe: non-finite loss")
+            check(probe[-1]["loss"] < probe[0]["loss"],
+                  f"probe: loss did not fall: {probe[0]['loss']} -> {probe[-1]['loss']}")
+            check(evals[-1]["eval_mpjpe_mm"] < evals[0]["eval_mpjpe_mm"],
+                  f"probe: eval MPJPE did not fall: {[h['eval_mpjpe_mm'] for h in evals]}")
+            log(f"[accuracy] resident_train probe bf16, {ACC_PROBE_SEQS} sequences, 16 a batch, window 8, "
+                f"{ACC_PROBE_STEPS} steps in {s:.1f} s ({probe[-1]['steps_per_s']:.2f} steps/s): loss "
+                f"{probe[0]['loss']:.4f} -> {probe[-1]['loss']:.4f}, eval MPJPE on the probe sequences "
+                f"{mpjpe_trail(evals)} mm, MPJPA {evals[-1]['eval_mpjpa_deg']:.2f} deg [{card}]")
+
+            # (c) the full run
+            history, s = driven(lambda: resident_train.main(
+                ["train"] + dims + ["--steps", str(ACC_STEPS), "--log-every", "5",
+                                    "--eval-every", str(ACC_EVAL_EVERY), "--device", "cuda",
+                                    "--out-dir", out, "--ckpt", ckpt]),
+                (0, 0, 0), "resident_train train")
+            with open(os.path.join(HERE, "checkpoints", "history_train.json")) as fp:
+                jax_rows = json.load(fp)
+            with open(os.path.join(out, "history_train.json")) as fp:
+                check(json.load(fp) == history, "the history JSON is not the run's history")
+            jax_keys = {frozenset(h) for h in jax_rows}
+            check(set(history[0]) == set(jax_rows[0]) and {frozenset(h) for h in history} <= jax_keys,
+                  f"history keys {sorted(history[0])} against the JAX run's {sorted(jax_rows[0])}")
+            evals = [h for h in history if "eval_mpjpe_mm" in h]
+            check(all(math.isfinite(v) for h in history for v in h.values()), "train: non-finite history")
+            check(history[-1]["loss"] < history[0]["loss"],
+                  f"train: loss did not fall: {history[0]['loss']} -> {history[-1]['loss']}")
+            model = UmeTrackNet(ModelConfig(compute_dtype=BF16))
+            model.load_state_dict(load_checkpoint(ckpt))
+            check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "checkpoint: non-finite")
+            with open(os.path.join(out, "diagnose_train.json")) as fp:
+                inline = json.load(fp)
+            log(f"[accuracy] resident_train train bf16, {ACC_TRAIN} sequences, 16 a batch, window 8, "
+                f"augmented, {ACC_STEPS} steps in {s:.1f} s ({history[-1]['steps_per_s']:.2f} steps/s, "
+                f"eval included): loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}, held-out "
+                f"eval MPJPE {mpjpe_trail(evals)} mm, MPJPA "
+                f"{evals[-1]['eval_mpjpa_deg']:.2f} deg; history keys those of "
+                f"checkpoints/history_train.json; the checkpoint reloads [{card}]")
+            for split, d in inline.items():
+                log(f"[accuracy] inline diagnose[{split}]: "
+                    + ", ".join(f"{k} {v:.2f}" for k, v in d.items()))
+
+            # (d) diagnose_ckpt on the saved checkpoint
+            got, s = driven(lambda: diagnose_ckpt.main(
+                ["--ckpt", ckpt] + dims + ["--split", "eval", "--seqs", str(ACC_EVAL), "--device", "cuda"]),
+                (0, 0, 0), "diagnose_ckpt")
+            check(set(got) == set(inline["eval"]), f"diagnose_ckpt keys {sorted(got)}")
+            rel = max(abs(got[k] - inline["eval"][k]) / max(abs(inline["eval"][k]), 1e-6) for k in got)
+            check(rel <= DIAGNOSE_RTOL, f"diagnose_ckpt against the inline diagnosis: {rel:.2e} relative")
+            log(f"[accuracy] diagnose_ckpt --split eval on the saved checkpoint in {s:.1f} s: equals the "
+                f"inline diagnosis within {rel:.2e} relative (<= {DIAGNOSE_RTOL}) [{card}]")
+
+            # (e) the four cells with the round-5 capsule checkpoint, one with the port's
+            eval_root, r5_out = os.path.join(root, "eval_r5"), os.path.join(root, "out_r5")
+            n_pool = sum((1 if mode == "known_skeleton" else 2) * ACC_EVAL_SEQS
+                         for mode, _ in accuracy_loop.CELLS)
+            _, s = driven(lambda: accuracy_loop.main(
+                ["eval", "--ckpt", R5_CHECKPOINT, "--eval-seqs", str(ACC_EVAL_SEQS),
+                 "--eval-frames", str(ACC_EVAL_FRAMES), "--device", "cuda", "--eval-root", eval_root,
+                 "--out-dir", r5_out]),
+                (n_pool, 0, 0), "accuracy_loop eval, round-5 checkpoint")
+            summaries = summaries_of(eval_root)
+            check(list(summaries) == [f"{m}/{p}" for m, p in accuracy_loop.CELLS],
+                  f"load_eval found {sorted(summaries)}")
+            for name, summ in summaries.items():
+                check(summ["n_total_frames"] == 2 * ACC_EVAL_SEQS * ACC_EVAL_FRAMES, f"{name}: {summ}")
+                check(all(math.isfinite(summ[k]) for k in ("mpjpe_mm", "mpjpa_deg", "pck_auc")),
+                      f"{name}: {summ}")
+                check(summ["success_rate"] > 0, f"{name}: success rate {summ['success_rate']}")
+            with open(os.path.join(r5_out, "RESULTS.md"), encoding="utf-8") as fp:
+                rows = [line for line in fp.read().splitlines() if line.startswith("|")]
+            check(len(rows) == 2 + len(accuracy_loop.CELLS), f"RESULTS.md table: {rows}")
+            log(f"[accuracy] accuracy_loop eval --ckpt checkpoints/synthetic_r5.msgpack (round 5, "
+                f"capsule domain), {ACC_EVAL_SEQS} sequences x {ACC_EVAL_FRAMES} frames a cell, f32: "
+                f"{s:.1f} s, {n_pool} warp_pool launches (one a sequence known, two unknown) [{card}]")
+            for line in rows:
+                log(f"[accuracy] r5 {line}")
+            cell = os.path.join(root, "eval_port", "eval_results_known_skeleton", "real", "separate_hand")
+            errors, s = driven(lambda: run_eval_known_skeleton.main(
+                ["--output-dir", cell, "--checkpoint", ckpt, "--synthetic", str(ACC_EVAL_SEQS),
+                 "--synthetic-frames", str(ACC_EVAL_FRAMES), "--device", "cuda"]),
+                (ACC_EVAL_SEQS, 0, 0), "known-skeleton eval, port-trained checkpoint")
+            port = summaries_of(os.path.join(root, "eval_port"))["known_skeleton/separate_hand"]
+            check(len(errors) == ACC_EVAL_SEQS and math.isfinite(port["mpjpe_mm"]), f"port cell: {port}")
+            log(f"[accuracy] run_eval_known_skeleton with the checkpoint of (c) ({ACC_STEPS} steps), "
+                f"separate_hand, {ACC_EVAL_SEQS} x {ACC_EVAL_FRAMES} frames: {s:.1f} s, MPJPE "
+                f"{port['mpjpe_mm']:.2f} mm, MPJPA {port['mpjpa_deg']:.2f} deg, PCK-AUC "
+                f"{port['pck_auc']:.4f}, success {port['success_rate']:.3f} (findings) [{card}]")
+
+            # (f) the torch_data corpus -> train -> tracker fine-tune chain
+            loop = ["--device", "cuda", "--corpus-root", os.path.join(root, "corpus"), "--out-dir", out,
+                    "--n-train", str(LOOP_SEQS), "--n-test", "1", "--corpus-t", str(LOOP_T),
+                    "--steps", str(LOOP_STEPS), "--batch-size", str(LOOP_BATCH), "--window", str(LOOP_T // 2),
+                    "--tracker-seqs", str(LOOP_BATCH // 2)]
+            _, s_corpus = driven(lambda: accuracy_loop.main(["corpus"] + loop), (0, 0, 0),
+                                 "accuracy_loop corpus")
+            loop_ckpt = os.path.join(out, accuracy_loop.CHECKPOINT_NAME)
+            _, s_train = driven(lambda: accuracy_loop.main(["train"] + loop), (0, LOOP_STEPS, 0),
+                                "accuracy_loop train")
+            tracker_ckpt = os.path.join(out, "tracker")
+            _, s_tracker = driven(lambda: accuracy_loop.main(
+                ["train-tracker", "--init-ckpt", loop_ckpt, "--ckpt", tracker_ckpt] + loop),
+                (LOOP_BATCH // 2, 0, 0), "accuracy_loop train-tracker")
+            first, second = load_checkpoint(loop_ckpt), load_checkpoint(tracker_ckpt)
+            check(set(first) == set(second) and any(
+                not torch.equal(first[k], second[k]) for k in first if first[k].is_floating_point()),
+                "train-tracker did not start from the train phase's checkpoint and move it")
+            log(f"[accuracy] accuracy_loop corpus ({LOOP_SEQS} + 1 sequences x {LOOP_T} frames of 120 x "
+                f"160) {s_corpus:.1f} s -> train ({LOOP_STEPS} steps of {LOOP_BATCH} sequences, window "
+                f"{LOOP_T // 2}, one warp_image_full launch a batch) {s_train:.1f} s -> train-tracker "
+                f"({LOOP_BATCH // 2} prepared sequences, one warp_pool launch each, {LOOP_STEPS} steps, "
+                f"from the train phase's .msgpack, saved as an orbax directory) {s_tracker:.1f} s; each "
+                f"checkpoint loads [{card}]")
+
+            # the full kernel at the loop's training shape, outside the counted runs
+            # the batch is preprocessed whole (every frame of its sequences), then windowed
+            label = f"accuracy_loop train shape, a batch of {LOOP_BATCH} x {LOOP_T} x {TD_V} frames of 120 x 160"
+            images, coords = torchdata_warp_operands(torchdata_batch(LOOP_BATCH, LOOP_T, 120, 160, seed0=70))
+            err = compare_image_kernels(wi_mod, images, coords, label)[0]
+            full_row = dict(shape=label, max_abs_err=err,
+                            **time_image_kernels(wi_mod, images, coords, label, card)["warp_image_full"])
+        finally:
+            resident_train.CACHE = cache_before
+    log(f"[accuracy] the phase took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return by_path, full_row
+
+
+def mpjpe_trail(rows):
+    """``a -> b -> c`` of the eval MPJPE (mm) of a history's evaluated rows."""
+    return " -> ".join(f"{h['eval_mpjpe_mm']:.1f}" for h in rows)
+
+
 def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
     """``launches``: the kernel's launches over the main paths' runs, each
     path counted from 0 (``launches_by_path`` says which path made how many).
@@ -2899,6 +3143,10 @@ def main():
     syn_launches, tree_launches, syn_bf16 = phase_train_app(wp_mod, wi_mod, card)
     distill_pool, distill_full, _ = phase_distill(wp_mod, wi_mod, card)
     log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the accuracy workflow: each driver call counted from 0
+    acc, acc_full_row = phase_accuracy(wp_mod, wi_mod, card)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [
@@ -2908,7 +3156,8 @@ def main():
                       "batched eval": batch_tally.total, "orbax checkpoint tracker": orbax_tally.total,
                       "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool,
                       "bf16 tracker and batched eval": bf16_tracker_launches,
-                      "bf16 raw_data eval": eval16_tally.total},
+                      "bf16 raw_data eval": eval16_tally.total,
+                      **{f"accuracy: {label}": got[0] for label, got in acc.items() if got[0]}},
                      pool_kern, eval_shapes + [train_rows["warp_pool"]]),
         kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:174",
@@ -2918,8 +3167,9 @@ def main():
         kernel_entry("warp_image_full", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:68",
                      {"torch_data 120 x 160": full_launches, "train app synthetic": syn_launches,
-                      "distill": distill_full, "bf16 train app synthetic": syn_bf16},
-                     image_kern["warp_image_full"], [train_rows["warp_image_full"]]),
+                      "distill": distill_full, "bf16 train app synthetic": syn_bf16,
+                      **{f"accuracy: {label}": got[1] for label, got in acc.items() if got[1]}},
+                     image_kern["warp_image_full"], [train_rows["warp_image_full"], acc_full_row]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -32,6 +32,13 @@ from .sequence_eval import (
 logger = logging.getLogger(__name__)
 
 
+def load_model(checkpoint: Optional[str], dtype: str = "auto", device=None):
+    """The eval model: ``common.load_model_cli`` (the checkpoint's weights,
+    or seeded ones without a checkpoint, on ``device``: CUDA unless
+    "cpu")."""
+    return load_model_cli(checkpoint, dtype, device)
+
+
 def sequences_to_process(args):
     """This rank's (input, output) pairs that still need an artifact."""
     inputs, outputs = find_input_output_files(

@@ -29,11 +29,14 @@ from .sequence_eval import (
 
 logger = logging.getLogger(__name__)
 
+# the generic hand the unknown-skeleton protocol scales (the data asset)
+DEFAULT_GENERIC_HAND = GENERIC_HAND_JSON
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     add_eval_flags(parser)
-    parser.add_argument("--generic-hand-model", default=GENERIC_HAND_JSON)
+    parser.add_argument("--generic-hand-model", default=DEFAULT_GENERIC_HAND)
     parser.add_argument("--n-calibration-samples", type=int, default=30)
     args = parser.parse_args(argv)
 

@@ -49,6 +49,15 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def library_path() -> str:
     """Where the library is (or would be) built."""
     from ..ops import _build
@@ -136,3 +145,12 @@ class NativeIdxBin:
     def __del__(self):
         if getattr(self, "_h", None):
             self.close()
+
+
+def open_idxbin(idx_path: str, bin_path: Optional[str] = None):
+    """The native reader where the library builds, else the Python one."""
+    if available():
+        return NativeIdxBin(idx_path, bin_path)
+    from .idxbin import IdxBinFile
+
+    return IdxBinFile.open(idx_path, bin_path)

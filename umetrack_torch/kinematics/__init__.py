@@ -1,6 +1,7 @@
 from . import hand, skinning
 from .hand import (
     HandModel,
+    Landmark,
     NUM_HANDS,
     NUM_JOINTS_PER_HAND,
     NUM_JOINT_FRAMES,
@@ -19,6 +20,7 @@ __all__ = [
     "hand",
     "skinning",
     "HandModel",
+    "Landmark",
     "NUM_HANDS",
     "NUM_JOINTS_PER_HAND",
     "NUM_JOINT_FRAMES",

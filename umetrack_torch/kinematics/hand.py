@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from enum import Enum
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -19,7 +20,10 @@ from .._tree import TensorTree
 
 NUM_HANDS = 2
 NUM_LANDMARKS_PER_HAND = 21
+NUM_FINGERTIPS_PER_HAND = 5
 NUM_JOINTS_PER_HAND = 22
+LEFT_HAND_INDEX = 0
+RIGHT_HAND_INDEX = 1
 NUM_DIGITS = 5
 NUM_JOINT_FRAMES = 1 + 1 + 3 * 5  # root + wrist + 3 frames per digit
 DOF_PER_FINGER = 4
@@ -28,6 +32,32 @@ GENERIC_HAND_JSON = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "..", "assets",
     "generic_hand_model.json",
 )
+
+
+class Landmark(Enum):
+    """The 21 landmarks of a hand, by index."""
+
+    THUMB_FINGERTIP = 0
+    INDEX_FINGER_FINGERTIP = 1
+    MIDDLE_FINGER_FINGERTIP = 2
+    RING_FINGER_FINGERTIP = 3
+    PINKY_FINGER_FINGERTIP = 4
+    WRIST_JOINT = 5
+    THUMB_INTERMEDIATE_FRAME = 6
+    THUMB_DISTAL_FRAME = 7
+    INDEX_PROXIMAL_FRAME = 8
+    INDEX_INTERMEDIATE_FRAME = 9
+    INDEX_DISTAL_FRAME = 10
+    MIDDLE_PROXIMAL_FRAME = 11
+    MIDDLE_INTERMEDIATE_FRAME = 12
+    MIDDLE_DISTAL_FRAME = 13
+    RING_PROXIMAL_FRAME = 14
+    RING_INTERMEDIATE_FRAME = 15
+    RING_DISTAL_FRAME = 16
+    PINKY_PROXIMAL_FRAME = 17
+    PINKY_INTERMEDIATE_FRAME = 18
+    PINKY_DISTAL_FRAME = 19
+    PALM_CENTER = 20
 
 
 @dataclasses.dataclass

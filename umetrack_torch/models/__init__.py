@@ -5,6 +5,7 @@ from .umetrack import (
     SkeletonInputs,
     TemporalState,
     UmeTrackNet,
+    init_model,
     init_weights,
     make_model,
     memory_motion_transform,
@@ -17,6 +18,7 @@ __all__ = [
     "SkeletonInputs",
     "TemporalState",
     "UmeTrackNet",
+    "init_model",
     "init_weights",
     "make_model",
     "memory_motion_transform",

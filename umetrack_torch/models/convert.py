@@ -188,3 +188,15 @@ def from_reference_state_dict(
         out[f"{names[path]}.{leaf}"] = a if leaf == "num_batches_tracked" else a.to(torch.float32)
     _check_against_config(out, cfg, "reference weights")
     return out
+
+
+# The JAX package's name for the conversion of the original model's weights.
+convert_state_dict = from_reference_state_dict
+
+
+def load_torch_checkpoint(path: str, config: Optional[ModelConfig] = None) -> Dict[str, torch.Tensor]:
+    """A ``.torch`` state dict of the original UmeTrack model, renamed to
+    the port's names and checked against ``config``."""
+    with open(path, "rb") as fp:
+        sd = torch.load(fp, map_location="cpu", weights_only=True)
+    return from_reference_state_dict(sd, config)

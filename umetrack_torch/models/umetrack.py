@@ -17,7 +17,7 @@ every decoded output is f32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -305,6 +305,14 @@ def make_model(
     config: Optional[ModelConfig] = None, seed: int = 0, device="cpu"
 ) -> UmeTrackNet:
     """A :class:`UmeTrackNet` in eval mode with seeded random weights."""
-    model = UmeTrackNet(config)
-    init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return init_model(torch.Generator().manual_seed(seed), config, device)[0]
+
+
+def init_model(
+    generator: torch.Generator, config: Optional[ModelConfig] = None, device="cpu"
+) -> Tuple[UmeTrackNet, Dict[str, torch.Tensor]]:
+    """(model, its state dict): a :class:`UmeTrackNet` of ``config`` in eval
+    mode with random weights drawn from ``generator``, as the JAX package's
+    ``init_model(rng, config)`` returns (model, variables)."""
+    model = init_weights(UmeTrackNet(config), generator).to(device).eval()
+    return model, model.state_dict()

@@ -83,6 +83,15 @@ def bilinear_sample_plain(
 SAMPLERS = ("plain", "kernel_full", "kernel_win")
 
 
+def default_sampler(device=None) -> str:
+    """The sampler :func:`bilinear_sample` takes for tensors on ``device``:
+    ``kernel_win`` on CUDA, ``plain`` on the CPU.  ``None`` names the
+    device this process would run on (CUDA when there is a card)."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return "kernel_win" if torch.device(device).type == "cuda" else "plain"
+
+
 def bilinear_sample(
     image: torch.Tensor,  # [H, W] or [N, H, W] uint8 or float32
     coords: torch.Tensor,  # [..., 2] or [N, ..., 2] float32 (x, y)
@@ -107,7 +116,7 @@ def bilinear_sample(
     from .warp_image import warp_image_full, warp_image_windowed
 
     on_cuda = image.device.type == "cuda"
-    name = method or ("kernel_win" if on_cuda else "plain")
+    name = method or default_sampler(image.device)
     if name not in SAMPLERS:
         raise ValueError(f"unknown sampler {name!r}: use one of {SAMPLERS}")
     if name == "plain":

@@ -1,4 +1,4 @@
-from .crops import gen_crop_set, landmarks_from_pose, static_crop_points_local
+from .crops import gen_crop_set, gen_crops_for_hand, landmarks_from_pose, static_crop_points_local
 from .tracker import (
     HandTracker,
     calibrate_sequence,
@@ -21,6 +21,7 @@ from .video import rig_from_labels
 
 __all__ = [
     "gen_crop_set",
+    "gen_crops_for_hand",
     "landmarks_from_pose",
     "static_crop_points_local",
     "HandTracker",

@@ -105,6 +105,39 @@ def _visibility_counts(
     return vis.sum(dim=-1).to(torch.int32)
 
 
+def gen_crops_for_hand(
+    rig: CameraRig,
+    T_world_from_camera: torch.Tensor,  # [..., N, 4, 4]
+    hand_model: HandModel,  # mm, left hand
+    joint_angles: torch.Tensor,  # [..., 22]
+    wrist_xf: torch.Tensor,  # [..., 4, 4] mm
+    confidence: torch.Tensor,  # [...]
+    hand_idx: int,
+    config: TrackerConfig,
+    min_num_crops: int,
+    static_pts_local: Optional[torch.Tensor] = None,  # [..., n_extra, 3]
+):
+    """Crop cameras for one hand, as the JAX package's per-hand function
+    returns them: (intrinsics [..., V, 3, 3], T_world_from_eye
+    [..., V, 4, 4], src_idx [..., V], view_valid [..., V], hand_valid [...],
+    n_views [...]).  :func:`gen_crop_set` with the pose in both hand slots,
+    read at ``hand_idx``."""
+    h = int(hand_idx)
+    both = gen_crop_set(
+        rig, T_world_from_camera, hand_model,
+        torch.stack([joint_angles] * 2, dim=-2),
+        torch.stack([wrist_xf] * 2, dim=-3),
+        torch.stack([torch.as_tensor(confidence, device=joint_angles.device)] * 2, dim=-1),
+        config, min_num_crops,
+        None if static_pts_local is None else torch.stack([static_pts_local] * 2, dim=-3),
+    )
+    return (
+        both.intrinsics.select(-4, h), both.T_world_from_eye.select(-4, h),
+        both.src_cam_idx.select(-2, h), both.view_valid.select(-2, h),
+        both.hand_valid.select(-1, h), both.n_views.select(-1, h),
+    )
+
+
 def gen_crop_set(
     rig: CameraRig,  # fields [..., N] (batch dims broadcast to the frames')
     T_world_from_camera: torch.Tensor,  # [..., N, 4, 4]

@@ -21,11 +21,7 @@ import torch
 from ..data import _msgpack
 from . import orbax
 from ..models.config import ModelConfig
-from ..models.convert import (
-    from_flax_variables,
-    from_reference_state_dict,
-    to_flax_variables,
-)
+from ..models.convert import from_flax_variables, load_torch_checkpoint, to_flax_variables
 
 
 def load_checkpoint(path: str, config: Optional[ModelConfig] = None) -> Dict[str, torch.Tensor]:
@@ -41,9 +37,7 @@ def load_checkpoint(path: str, config: Optional[ModelConfig] = None) -> Dict[str
             raise ValueError(f"{path} holds no flax variables (no 'params' entry)")
         return from_flax_variables(variables, config)
     if path.endswith(".torch"):
-        with open(path, "rb") as fp:
-            sd = torch.load(fp, map_location="cpu", weights_only=True)
-        return from_reference_state_dict(sd, config)
+        return load_torch_checkpoint(path, config)
     variables = orbax.read_standard_checkpoint(path)
     if "params" not in variables:
         raise ValueError(f"{path} holds no flax variables (no 'params' entry)")

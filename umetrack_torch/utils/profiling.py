@@ -9,12 +9,43 @@ its ``barrier``: the timer synchronises it before it reads the clock.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+
+
+def fetch_barrier(tree=None) -> None:
+    """Wait until the work queued on the CUDA devices of ``tree``'s tensors
+    (nested lists, tuples, dicts and tensor dataclasses; every CUDA device
+    when ``tree`` is None) has finished.  CPU tensors need no wait."""
+    if tree is None:
+        if torch.cuda.is_available():
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+        return
+    devices = set()
+
+    def visit(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                devices.add(x.device)
+        elif isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                visit(v)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                visit(getattr(x, f.name))
+
+    visit(tree)
+    for device in devices:
+        torch.cuda.synchronize(device)
 
 
 class PhaseTimers:
