@@ -97,7 +97,18 @@ exits non-zero without a result line:
    rank over NCCL: the sharded eval equals the unsharded one bit for bit,
    ``train_step`` and ``temporal_train_step`` with the synchronised
    BatchNorm equal the same steps without a group, and the group is left
-   (one card: no multi-GPU number);
+   (one card: no multi-GPU number); then ``[tp]``, the tensor-parallel
+   model axis: this script started as ``--tp-worker`` in groups of 2 (data
+   1 x model 2) and 4 (data 2 x model 2) processes that share the card over
+   gloo (CUDA tensors; their times are no tensor-parallel speed), each rank
+   running both batched protocols at S=4 x T=8 with seeded weights and the
+   checkpoint (one + two ``warp_pool`` launches), ``train_step`` and
+   ``temporal_train_step`` at full width (B=4) and at the small config of
+   ``tests/test_torch_tp.py``, and the train app's ``main`` with ``{"mesh":
+   {"model_axis": 2}}`` (one ``warp_image_full`` launch a batch; its orbax
+   ``final`` reloads unsharded to the same forward); all against the same
+   calls with no group, the replicated parameters equal bit for bit across
+   the model ranks, and ``model_axis`` 0 giving model 2 in a world of 2;
 10. the training path at the full width of ``ModelConfig()`` (f32): one
    ``train_step`` and one ``temporal_train_step`` (K=4) on the card against
    the CPU at the CPU tests' small config and bounds (loss, metrics, every
@@ -235,6 +246,32 @@ R5_CHECKPOINT = os.path.join(HERE, "checkpoints", "synthetic_r5.msgpack")
 # and inputs, so only a different choice of cuDNN algorithm could part them
 DIAGNOSE_RTOL = 1e-4
 LOOP_SEQS, LOOP_T, LOOP_STEPS, LOOP_BATCH = 4, 8, 2, 4
+# [tp]: groups of processes sharing card 0 over gloo, a (world / 2, 2) mesh;
+# the eval bounds are tests/test_parallel.py's sharded-eval ones (TRAINED's
+# for the checkpoint on a data split, where each rank batches otherwise
+# than the call with no group), the train bounds phase 9's; TP_FORWARD_TOL holds the reloaded checkpoint's forward
+# against the sharded model's (cuDNN may pick other algorithms for the
+# halved output widths)
+TP_WORLDS, TP_MODEL = (2, 4), 2
+TP_S, TP_T, TP_SEED = 4, 8, 100
+TP_B = 4
+TP_APP_STEPS, TP_APP_BATCH, TP_APP_WINDOW = 2, 4, 2
+TP_EVAL_MM, TP_EVAL_RTOL, TP_NORM_RTOL = 1e-3, 1e-4, 1e-5
+# At the full width with B=4 rows a step's gradient is ill-conditioned: a
+# relative nudge of 1e-7 to the images (below f32 rounding) moves some leaves
+# by up to 5e-3 relative L2 with no group, and splitting the rows over data
+# ranks (the synchronised BatchNorm's partial sums) moves BatchNorm leaves of
+# the TBPTT step by up to 1.6e-2 with or without the model axis (measured on
+# the CPU), past phase 9's bounds.  So there the metrics, the running stats
+# and the replicas are gated and the gradient gap is printed beside what a
+# nudge moves; the gradients and the norm are gated at phase 9's bounds on
+# tests/test_torch_tp.py's small config and batches, which a nudge moves by
+# at most 5e-5 (measured on the CPU).
+TP_SMALL = dict(start_planes=16, backbone_blocks=(1, 1, 1, 1), n_image_feature_channels=12,
+                n_memory_channels=6)
+TP_SMALL_B, TP_SMALL_SEED, TP_SMALL_VALID = 6, 3, (True, True, True, True, False, False)
+TP_FORWARD_TOL = 1e-4
+TP_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
@@ -1230,11 +1267,10 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
     return n_launches
 
 
-def phase_profile(fn, label, kernel_name, card, top=15):
-    """One warmed-up call of ``fn`` under torch.profiler: device time by
-    kernel, the share of the kernels named ``kernel_name`` (if given), and
-    the device's busy share of the call's wall time (one stream, so kernels
-    do not overlap)."""
+def profile_call(fn):
+    """One call of ``fn`` under torch.profiler: its wall ms, device ms (the
+    kernels' time; one stream, so they do not overlap), kernel launches and
+    the rows (device us, count, name) by kernel, largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1260,7 +1296,15 @@ def phase_profile(fn, label, kernel_name, card, top=15):
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     check(total > 0, "the profiler saw no device time")
-    n_launches = sum(r[1] for r in rows)
+    return dict(wall_ms=wall_us / 1e3, device_ms=total / 1e3, launches=sum(r[1] for r in rows), rows=rows)
+
+
+def phase_profile(fn, label, kernel_name, card, top=15):
+    """One warmed-up call of ``fn`` under torch.profiler (:func:`profile_call`):
+    device time by kernel, the share of the kernels named ``kernel_name``
+    (if given), and the device's busy share of the call's wall time."""
+    prof = profile_call(fn)
+    rows, total, wall_us, n_launches = prof["rows"], prof["device_ms"] * 1e3, prof["wall_ms"] * 1e3, prof["launches"]
     warp = sum(r[0] for r in rows if kernel_name and kernel_name in r[2])
     check(kernel_name is None or warp > 0, f"{label}: no {kernel_name} in the profile")
     share = f", {kernel_name} {warp / 1e3:.3f} ms ({warp / total:.4f} of device time)" if kernel_name else ""
@@ -1268,7 +1312,7 @@ def phase_profile(fn, label, kernel_name, card, top=15):
         f"busy share {total / wall_us:.3f}, {n_launches} kernel launches{share} [{card}]")
     for dev, count, key in rows[:top]:
         log(f"[profile] {dev / 1e3:9.3f} ms {dev / total:6.3f} x{count:<5d} {key[:100]}")
-    return dict(wall_ms=wall_us / 1e3, device_ms=total / 1e3, launches=n_launches, rows=rows)
+    return prof
 
 
 # Kinds of device kernel by a piece of their name (lower case), first match
@@ -2275,22 +2319,381 @@ def phase_process_group(model, tally, rigs, seqs, hands, unsharded, card):
         f"multi-GPU number is measured [{card}]")
 
 
+# ---- the tensor-parallel model axis ----------------------------------------
+
+
+def tp_eval(model, mesh, rigs, seqs, hands, generic):
+    """The two batched protocols of ``parallel/eval.py`` on this data
+    index's block of the sequences, TF32 off: (known results, unknown
+    results, warp_pool launches of each call, each counted from 0)."""
+    from umetrack_torch.ops.warp_pool import warp_pool
+    from umetrack_torch.parallel.eval import (
+        eval_sequences_batched, eval_sequences_unknown_batched, make_batched_state, shard_eval_inputs)
+    from umetrack_torch.tracker import TrackerConfig
+
+    config = TrackerConfig()
+    rigs, seqs, state, hands = shard_eval_inputs(mesh, rigs, seqs, make_batched_state(model, TP_S), hands)
+    with tf32_off():
+        warp_pool.launches = 0
+        known = eval_sequences_batched(model, config, rigs, seqs, state, hands)
+        known_launches = warp_pool.launches
+        warp_pool.launches = 0
+        unknown = eval_sequences_unknown_batched(model, config, rigs, seqs, hands, generic)
+        unknown_launches = warp_pool.launches
+    return ([x.cpu() for x in known], [x.cpu() for x in unknown], (known_launches, unknown_launches))
+
+
+def tp_small_batches():
+    """tests/test_torch_tp.py's batches: TP_SMALL_B rows from seed
+    TP_SMALL_SEED with its valid masks (the data indices hold different
+    numbers of valid rows), on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    frame, window = small_train_batches("cpu", TP_SMALL_B, TP_SMALL_SEED)
+    valid_t = np.ones((TP_SMALL_B, TRAIN_K), bool)
+    valid_t[1, 3] = valid_t[4] = valid_t[5, 2:] = False
+    frame = dataclasses.replace(frame, valid=torch.tensor(TP_SMALL_VALID))
+    window = dataclasses.replace(window, valid=torch.from_numpy(valid_t))
+    return frame.to("cuda"), window.to("cuda")
+
+
+def tp_steps(mesh, noise=None):
+    """One ``train_step`` and one ``temporal_train_step`` at the full width
+    of ``ModelConfig()`` on TP_B rows and at TP_SMALL on
+    :func:`tp_small_batches`, each on this data index's block, TF32 off:
+    {(config, label): (metrics, gradients gathered whole, running stats,
+    replicated parameters after the step, global norm, ms of a second
+    step)}.  ``noise`` seeds a relative nudge of the images by 1e-7 (below
+    f32 rounding): how far rounding alone moves the results."""
+    import dataclasses
+
+    import torch
+    from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.parallel import ClippedAdamW, create_train_state, temporal_train_step, train_step
+    from umetrack_torch.parallel.collectives import gather_blocks
+    from umetrack_torch.parallel.mesh import shard_batch, shard_variables
+
+    out = {}
+    for config_label, config, batches in (("full", ModelConfig(), small_train_batches("cuda", TP_B)),
+                                          ("small", ModelConfig(**TP_SMALL), tp_small_batches())):
+        frame, window = batches
+        if noise is not None:
+            gen = torch.Generator(device="cuda").manual_seed(noise)
+
+            def nudge(f):
+                return dataclasses.replace(f, images=f.images * (1 + 1e-7 * torch.randn(
+                    f.images.shape, generator=gen, device="cuda")))
+
+            frame = dataclasses.replace(frame, frame=nudge(frame.frame))
+            window = dataclasses.replace(window, frames=nudge(window.frames))
+        for label, step_fn, batch in (("train_step", train_step, frame),
+                                      (f"temporal_train_step K={TRAIN_K}", temporal_train_step, window)):
+            model = make_model(config, seed=0, device="cuda")
+            if mesh is not None:
+                shard_variables(model, mesh)
+                batch = shard_batch(batch, mesh)
+            opt = ClippedAdamW(model.parameters(), 1e-3, 1e-5, mesh=mesh)
+            state = create_train_state(model, opt)
+            with tf32_off():
+                metrics = step_fn(state, batch)
+                grads, replicated = {}, {}  # copies: the timed second step below moves the originals
+                for name, p in model.named_parameters():
+                    if getattr(p, "partition_dim", None) is not None:
+                        grads[name] = gather_blocks(p.grad, 0, mesh.model_group).to("cpu", copy=True)
+                    else:
+                        grads[name] = p.grad.to("cpu", copy=True)
+                        replicated[name] = p.detach().to("cpu", copy=True)
+                stats = {n: b.to("cpu", copy=True) for n, b in model.named_buffers() if "running" in n}
+                out[config_label, label] = dict(
+                    metrics={k: float(v) for k, v in metrics.items()}, grads=grads, stats=stats,
+                    replicated=replicated, norm=float(opt.global_norm),
+                    ms=wall_ms(lambda: step_fn(state, batch))[0])
+    return out
+
+
+def tp_app(mesh, out_dir):
+    """``apps/train.py::main`` in this process group with ``{"mesh":
+    {"model_axis": 2}}``, TP_APP_STEPS steps on synthetic 120 x 160 batches
+    (``warp_image_full`` counted from 0 around the call); then the trained
+    model's eval-mode forward (TF32 off), which rank 0 holds against the
+    orbax directory ``final`` reloaded into one unsharded model, and the
+    gathered weights against the reloaded ones."""
+    import torch
+    import torch.distributed as dist
+    from umetrack_torch.apps import train as app
+    from umetrack_torch.config import Config, MeshConfig, to_json
+    from umetrack_torch.models import ModelConfig, TemporalState, UmeTrackNet
+    from umetrack_torch.ops.warp_image import warp_image_full
+    from umetrack_torch.parallel.mesh import full_state_dict
+    from umetrack_torch.utils.checkpoints import load_checkpoint
+
+    cfg_path, ckpts = os.path.join(out_dir, "tp_app.json"), os.path.join(out_dir, "ckpts")
+    if mesh.rank == 0:
+        to_json(Config(mesh=MeshConfig(model_axis=TP_MODEL)), cfg_path)
+    dist.barrier()
+    warp_image_full.launches = 0
+    t_app, (state, hist) = wall_ms(lambda: app.main([
+        "--config", cfg_path, "--synthetic", "--steps", str(TP_APP_STEPS), "--batch-size", str(TP_APP_BATCH),
+        "--window", str(TP_APP_WINDOW), "--checkpoint-dir", ckpts]))
+    full_launches = warp_image_full.launches
+    check(full_launches == TP_APP_STEPS,
+          f"tp train app: {full_launches} warp_image_full launches in {TP_APP_STEPS} batches")
+    check(all(math.isfinite(v) for v in hist), f"tp train app: loss {hist}")
+    trained = state.model.eval()
+    batch = next(app.synthetic_batches(4, (96, 96), device="cuda"))
+    keys = ("joint_angles", "wrist_xfs", "landmark_uncertainty_sigmas")
+
+    def forward(model):
+        with tf32_off(), torch.no_grad():
+            zero = TemporalState.zeros(4, model.config, device="cuda")
+            out, _ = model.known_skeleton(batch.frame, batch.skeleton, zero)
+        return [getattr(out, k) for k in keys]
+
+    sharded = forward(trained)
+    gathered = full_state_dict(trained, trained.mesh)
+    result = dict(hist=hist, ms=t_app, full_launches=full_launches, mesh=trained.mesh.shape)
+    if mesh.rank == 0:
+        check(os.listdir(ckpts) == ["final"], f"tp train app: checkpoints {os.listdir(ckpts)}")
+        loaded = load_checkpoint(os.path.join(ckpts, "final"))
+        check(all(torch.equal(v.cuda(), gathered[k].to(v.dtype)) for k, v in loaded.items()),
+              "tp train app: the orbax directory differs from the gathered weights")
+        alone = UmeTrackNet(ModelConfig())
+        alone.load_state_dict(loaded)
+        result["forward_gap"] = max(float((a - b).abs().max()) for a, b in zip(sharded, forward(alone.cuda().eval())))
+    return result
+
+
+def tp_worker(rank, world, port, out_dir):
+    """One rank of a ``[tp]`` group: ``world`` processes on card 0 joined
+    over gloo (CUDA tensors), a (world / 2, 2) mesh; runs ``tp_eval`` with
+    seeded weights and the checkpoint, ``tp_steps``, ``tp_app`` (and in a
+    world of 2, ``model_axis`` 0) and writes its results to
+    ``out_dir/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from umetrack_torch.kinematics.hand import from_dict, load_generic_hand_dict
+    from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.parallel import distributed
+    from umetrack_torch.parallel.mesh import make_mesh, shard_variables
+    from umetrack_torch.utils.checkpoints import load_checkpoint
+    from umetrack_torch.utils.synthetic import make_sequences
+
+    rank, world, port = int(rank), int(world), int(port)
+    torch.cuda.set_device(0)
+    distributed.initialize(f"localhost:{port}", world, rank, backend="gloo", device="cuda")
+    try:
+        check(dist.get_backend() == "gloo", f"backend {dist.get_backend()}")
+        mesh = make_mesh(model_axis=TP_MODEL)
+        res = {"mesh": (mesh.shape, mesh.data_index, mesh.model_index)}
+        if world == 2:
+            res["auto"] = make_mesh(model_axis=0).shape
+        rigs, seqs, hands = make_sequences(TP_S, TP_T, seed=TP_SEED, device="cuda")
+        generic = from_dict(load_generic_hand_dict(), device="cuda")
+        res["eval"] = {}
+        for label, weights in (("seeded weights", None), ("checkpoint", load_checkpoint(CHECKPOINT))):
+            model = make_model(ModelConfig(), seed=0, device="cuda")
+            if weights is not None:
+                model.load_state_dict(weights)
+            shard_variables(model, mesh)
+            res["eval"][label] = tp_eval(model, mesh, rigs, seqs, hands, generic)
+            if weights is None:  # the times: PyTorch's defaults (TF32), as every f32 number
+                from umetrack_torch.parallel.eval import eval_sequences_batched, make_batched_state
+                from umetrack_torch.parallel.eval import shard_eval_inputs
+                from umetrack_torch.tracker import TrackerConfig
+
+                parts = shard_eval_inputs(mesh, rigs, seqs, make_batched_state(model, TP_S), hands)
+                call = lambda: eval_sequences_batched(model, TrackerConfig(), *parts)  # noqa: E731
+                res["eval_ms"] = median_ms(call, 3, warmup=1)
+                res["eval_profile"] = {k: v for k, v in profile_call(call).items() if k != "rows"}
+            del model
+        res["steps"] = tp_steps(mesh)
+        res["app"] = tp_app(mesh, out_dir)
+    finally:
+        distributed.finalize()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    return 0
+
+
+def tp_references(ckpt_cuda):
+    """The same calls with no process group on the card: the two protocols
+    with each model, and the two train steps."""
+    from umetrack_torch.kinematics.hand import from_dict, load_generic_hand_dict
+    from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.parallel.eval import eval_sequences_batched, make_batched_state
+    from umetrack_torch.parallel.mesh import make_mesh
+    from umetrack_torch.tracker import TrackerConfig
+    from umetrack_torch.utils.synthetic import make_sequences
+
+    rigs, seqs, hands = make_sequences(TP_S, TP_T, seed=TP_SEED, device="cuda")
+    generic = from_dict(load_generic_hand_dict(), device="cuda")
+    evals = {label: tp_eval(model, make_mesh(), rigs, seqs, hands, generic)
+             for label, model in (("seeded weights", make_model(ModelConfig(), seed=0, device="cuda")),
+                                  ("checkpoint", ckpt_cuda))}
+    seeded = make_model(ModelConfig(), seed=0, device="cuda")
+    call = lambda: eval_sequences_batched(  # noqa: E731
+        seeded, TrackerConfig(), rigs, seqs, make_batched_state(seeded, TP_S), hands)
+    return dict(eval=evals, steps=tp_steps(None), nudged=tp_steps(None, noise=1),
+                eval_ms=median_ms(call, 3, warmup=1),
+                eval_profile=profile_call(call))
+
+
+def run_tp_group(world):
+    """``world`` worker processes of this script on card 0 (``--tp-worker``),
+    each given TP_TIMEOUT_S; any failure or time-out stops them all and
+    fails the phase.  Returns the ranks' results and the wall seconds."""
+    import socket
+
+    import torch
+
+    out = tempfile.mkdtemp(prefix=f"umetrack_tp{world}_")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w+") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r), str(world),
+                               str(port), out], cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    for r, (p, fp) in enumerate(zip(procs, logs)):
+        fp.seek(0)
+        tail = fp.read()[-3000:]
+        fp.close()
+        check(p.returncode == 0, f"[tp] world {world}: rank {r} exited {p.returncode}:\n{tail}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(world)], wall_s
+
+
+def phase_tp(ckpt_cuda, card):
+    """``[tp]``: the tensor-parallel model axis on the card.  Groups of 2
+    (data 1 x model 2) and 4 (data 2 x model 2) processes share card 0 over
+    gloo; each rank runs the batched eval at S x T = TP_S x TP_T (seeded
+    weights and the checkpoint), the two train steps at TP_B rows and the
+    train app with ``{"mesh": {"model_axis": 2}}``; all held against the
+    same calls here with no group.  Returns the launches by path."""
+    refs = tp_references(ckpt_cuda)
+    by_path = {}
+    for world in TP_WORLDS:
+        ranks, wall_s = run_tp_group(world)
+        data = world // TP_MODEL
+        for r, res in enumerate(ranks):
+            check(res["mesh"] == ({"data": data, "model": TP_MODEL}, r // TP_MODEL, r % TP_MODEL),
+                  f"[tp] world {world} rank {r}: mesh {res['mesh']}")
+            check(res["app"]["mesh"] == {"data": data, "model": TP_MODEL}, f"app mesh {res['app']['mesh']}")
+        if world == 2:
+            check(all(res["auto"] == {"data": 1, "model": 2} for res in ranks), "model_axis 0: not model 2")
+        gaps = {}
+        for label, (known, unknown, _) in refs["eval"].items():
+            # the checkpoint on a data split: each rank batches half the sequences, and trained
+            # weights amplify the crop fit's f32 rounding between differently batched calls (TRAINED)
+            mm, rtol = (TRAINED.mm, 0.0) if label == "checkpoint" and data > 1 else (TP_EVAL_MM, TP_EVAL_RTOL)
+            gap = [0.0, 0.0, 0.0, mm, rtol]  # known mm, unknown mm, scale, the bounds
+            for res in ranks:
+                k, u, launches = res["eval"][label]
+                check(launches == (1, 2), f"[tp] {label}: warp_pool launches {launches}, expected (1, 2)")
+                for got, want, slot, what in ((k, known, 0, "known"), (u, unknown, 1, "unknown")):
+                    check(bool((got[1] == want[1]).all()), f"[tp] {label}: valid slots differ")
+                    d = float((got[0] - want[0]).abs().max())
+                    check(bool(((got[0] - want[0]).abs() <= mm + rtol * want[0].abs()).all())
+                          and abs(float(got[2]) - float(want[2])) <= mm + rtol * abs(float(want[2])),
+                          f"[tp] world {world} {label} {what}: per-sequence error {got[0]} against {want[0]}")
+                    gap[slot] = max(gap[slot], d)
+                d_scale = float((u[3] - unknown[3]).abs().max())
+                check(d_scale <= SCALE_TOL, f"[tp] world {world} {label}: scales differ by {d_scale}")
+                gap[2] = max(gap[2], d_scale)
+            gaps[label] = gap
+        pool = sum(sum(res["eval"][label][2]) for res in ranks for label in refs["eval"])
+        by_path[f"tp world {world} batched eval"] = pool
+        step_text = []
+        for (config_label, label), want in refs["steps"].items():
+            nudged = refs["nudged"][config_label, label]
+            for r, res in enumerate(ranks):
+                got = res["steps"][config_label, label]
+                check(all(abs(got["metrics"][k] - want["metrics"][k]) <= LOSS_RTOL * abs(want["metrics"][k]) + 1e-7
+                          for k in want["metrics"]), f"[tp] {config_label} {label}: metrics {got['metrics']} "
+                                                     f"against {want['metrics']}")
+                d_stats = max(float(((got["stats"][k] - want["stats"][k]).abs() / (1 + want["stats"][k].abs())).max())
+                              for k in want["stats"])
+                check(d_stats <= STATS_TOL, f"[tp] {config_label} {label}: running stats differ by {d_stats}")
+                partner = ranks[r ^ 1]["steps"][config_label, label]["replicated"]  # same data index
+                check(all(bool((v == partner[k]).all()) for k, v in got["replicated"].items()),
+                      f"[tp] {config_label} {label}: replicated parameters differ across the model ranks")
+                d_norm = abs(got["norm"] - want["norm"]) / want["norm"]
+                if config_label == "small":
+                    ordinary, first, noise = grad_gaps(got["grads"], want["grads"])
+                    check(d_norm <= TP_NORM_RTOL, f"[tp] {label}: global norm {got['norm']} against {want['norm']}")
+                    gap = (f"gradient leaves within {ordinary:.3e} relative L2 (<= {GRAD_REL_L2}), the first layers "
+                           f"{first:.3e} (<= {FIRST_LAYERS_REL_L2}), zero-gradient biases {noise:.3e} "
+                           f"(<= {ZERO_GRAD_NOISE}), global norm {d_norm:.3e} (<= {TP_NORM_RTOL})")
+                else:  # ill-conditioned: printed beside what a nudge of the images moves with no group
+                    worst = max(float((got["grads"][k] - g).norm() / g.norm())
+                                for k, g in want["grads"].items() if k not in ZERO_GRAD_LEAVES)
+                    moved = max(float((nudged["grads"][k] - g).norm() / g.norm())
+                                for k, g in want["grads"].items() if k not in ZERO_GRAD_LEAVES)
+                    gap = (f"the worst gradient leaf {worst:.3e} relative L2 and the global norm {d_norm:.3e} "
+                           f"(not gated: images nudged by 1e-7 move them by {moved:.3e} and "
+                           f"{abs(nudged['norm'] - want['norm']) / want['norm']:.3e} with no group)")
+            step_text.append(
+                f"{config_label} {label}: metrics and running stats ({d_stats:.3e}) within phase 9's bounds, {gap}, "
+                f"{max(res['steps'][config_label, label]['ms'] for res in ranks):.1f} ms a step (no group: "
+                f"{want['ms']:.1f})")
+        app_res = ranks[0]["app"]
+        check(app_res["forward_gap"] <= TP_FORWARD_TOL, f"[tp] the reloaded checkpoint's forward: {app_res['forward_gap']}")
+        by_path[f"tp world {world} train app"] = sum(res["app"]["full_launches"] for res in ranks)
+        host = max(res["eval_ms"] for res in ranks)
+        device = max(res["eval_profile"]["device_ms"] for res in ranks)
+        log(f"[tp] world {world} = data {data} x model {TP_MODEL}: {world} processes sharing one H100 over gloo "
+            f"(TIMES ARE NOT A TENSOR-PARALLEL SPEED), the group's run {wall_s:.1f} s with start-up; "
+            f"eval_sequences_batched S={TP_S} x T={TP_T}, full ModelConfig() f32 (TF32): wall {host:.1f} ms a "
+            f"call (slowest rank, CUDA events, median of 3), device {device:.1f} ms (slowest rank, "
+            f"torch.profiler), {max(res['eval_profile']['launches'] for res in ranks)} kernel launches a rank; "
+            f"no group: wall {refs['eval_ms']:.1f} ms, device {refs['eval_profile']['device_ms']:.1f} ms [{card}]")
+        for label, (dk, du, ds, mm, rtol) in gaps.items():
+            log(f"[tp] world {world} {label}, TF32 off: eval_sequences_batched per-sequence error within "
+                f"{dk:.3e} mm of the call with no group, eval_sequences_unknown_batched {du:.3e} mm, scales "
+                f"{ds:.3e} (bounds {rtol} relative + {mm} mm, scale {SCALE_TOL}); warp_pool 1 + 2 launches on "
+                f"each rank")
+        log(f"[tp] world {world}, TF32 off, against no group (full: ModelConfig() on B={TP_B} rows; small: "
+            f"TP_SMALL on tests/test_torch_tp.py's B={TP_SMALL_B} rows): " + "; ".join(step_text)
+            + "; replicated parameters equal bit for bit across the model ranks")
+        log(f"[tp] world {world} train app main {{\"mesh\": {{\"model_axis\": 2}}}} --synthetic --steps "
+            f"{TP_APP_STEPS} --batch-size {TP_APP_BATCH} --window {TP_APP_WINDOW}: "
+            f"{max(res['app']['ms'] for res in ranks) / 1e3:.1f} s with start-up, loss {app_res['hist']}, "
+            f"one warp_image_full launch a batch on each rank; the orbax final equals the gathered weights "
+            f"and reloads unsharded to the forward within {app_res['forward_gap']:.3e} (TF32 off) [{card}]")
+    return by_path
+
+
 # ---- the training slice ------------------------------------------------------
 
 
-def small_train_batches(device):
+def small_train_batches(device, b=TRAIN_B, seed=0):
     """The CPU tests' batches at their small config: one single-frame
     batch and one K-frame window made from K single-frame draws (the rows
     keep their hand, the crop cameras drift by 1 cm a frame), built on the
-    CPU and moved to ``device``."""
+    CPU and moved to ``device``; ``b`` rows, drawn from ``seed`` (the
+    window from ``seed + 10 + k``)."""
     import torch
     from umetrack_torch.kinematics.hand import from_dict, load_generic_hand_dict
     from umetrack_torch.models import FrameInputs
     from umetrack_torch.parallel.train import TemporalTrainBatch, synthetic_train_batch
 
     hand = from_dict(load_generic_hand_dict())
-    frame = synthetic_train_batch(0, TRAIN_B, hand, device="cpu")
-    draws = [synthetic_train_batch(10 + k, TRAIN_B, hand, device="cpu") for k in range(TRAIN_K)]
+    frame = synthetic_train_batch(seed, b, hand, device="cpu")
+    draws = [synthetic_train_batch(seed + 10 + k, b, hand, device="cpu") for k in range(TRAIN_K)]
     f0 = draws[0].frame
     extr = f0.extrinsics[:, None].repeat(1, TRAIN_K, 1, 1, 1)
     extr[..., :3, 3] += 0.01 * torch.arange(TRAIN_K, dtype=torch.float32)[None, :, None, None]
@@ -2301,7 +2704,7 @@ def small_train_batches(device):
             extrinsics=extr,
             n_views=f0.n_views[:, None].repeat(1, TRAIN_K),
             hand_idx=f0.hand_idx[:, None].repeat(1, TRAIN_K),
-            use_memory=(torch.arange(TRAIN_K) > 0).expand(TRAIN_B, TRAIN_K).contiguous(),
+            use_memory=(torch.arange(TRAIN_K) > 0).expand(b, TRAIN_K).contiguous(),
         ),
         skeleton=draws[0].skeleton,
         gt_joint_angles=torch.stack([d.gt_joint_angles for d in draws], dim=1),
@@ -3112,6 +3515,12 @@ def main():
         f"{batch_tally.total}")
     del rigs, seqs, hands, unsharded
     torch.cuda.empty_cache()
+
+    # the tensor-parallel model axis: worker processes sharing this card
+    t_tp = time.perf_counter()
+    tp_launches = phase_tp(ckpt_cuda, card)
+    log(f"[tp] the phase took {time.perf_counter() - t_tp:.1f} s")
+    torch.cuda.empty_cache()
     f32_known = phase_eval_apps(models, tally, card)
     log(f"[eval] warp_pool launches over the evaluation path's entry-point calls: {tally.total}")
     phase_eval_cpu_vs_card([("seeded weights", model_cpu, model_cuda, STRICT),
@@ -3157,6 +3566,7 @@ def main():
                       "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool,
                       "bf16 tracker and batched eval": bf16_tracker_launches,
                       "bf16 raw_data eval": eval16_tally.total,
+                      **{path: n for path, n in tp_launches.items() if "eval" in path},
                       **{f"accuracy: {label}": got[0] for label, got in acc.items() if got[0]}},
                      pool_kern, eval_shapes + [train_rows["warp_pool"]]),
         kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",
@@ -3168,6 +3578,7 @@ def main():
                      "umetrack_tpu/ops/pallas_resample.py:68",
                      {"torch_data 120 x 160": full_launches, "train app synthetic": syn_launches,
                       "distill": distill_full, "bf16 train app synthetic": syn_bf16,
+                      **{path: n for path, n in tp_launches.items() if "train app" in path},
                       **{f"accuracy: {label}": got[1] for label, got in acc.items() if got[1]}},
                      image_kern["warp_image_full"], [train_rows["warp_image_full"], acc_full_row]),
     ]}))
@@ -3180,4 +3591,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(*sys.argv[2:6]))
     sys.exit(main())

@@ -32,7 +32,8 @@ NEW_MODULES = (
     "utils/profiling.py", "utils/render.py", "tracker/video.py",
     "config.py", "parallel/train.py", "parallel/optim.py", "parallel/resident.py",
     "apps/train.py", "apps/distill.py",
-    "parallel/eval.py", "parallel/distributed.py", "parallel/mesh.py", "data/native.py",
+    "parallel/eval.py", "parallel/distributed.py", "parallel/mesh.py", "parallel/collectives.py",
+    "data/native.py",
     "utils/_zstd.py", "utils/ocdbt.py", "utils/orbax.py",
     "scripts/resident_train.py", "scripts/diagnose_ckpt.py", "scripts/accuracy_loop.py",
 )

@@ -143,6 +143,9 @@ def test_shard_eval_inputs_takes_contiguous_blocks(setup):
     assert torch.equal(h.joint_rest_positions, hands.joint_rest_positions[2:4])
     assert torch.equal(st.valid_history, state.valid_history[4:8])  # rows 2i, 2i+1 of seq i
     assert st.temporal.mem_features.shape[0] == 4
+    # the JAX signature: rank 3 of a (data 2, model 2) mesh is data index 1
+    r2, s2, st2, h2 = peval.shard_eval_inputs(Mesh(data=2, rank=3, model=2), rigs, seqs, state, hands)
+    assert torch.equal(s2.images, s.images) and torch.equal(st2.valid_history, st.valid_history)
     with pytest.raises(ValueError, match="do not split"):
         peval.shard_eval_inputs(0, 3, rigs, seqs, state, hands)
 
@@ -152,11 +155,13 @@ def test_mesh_and_mesh_config():
     assert mesh.shape == {"data": 1, "model": 1} and mesh.rank == 0
     x = torch.arange(12).reshape(6, 2)
     assert torch.equal(shard_batch(x, Mesh(data=3, rank=2)), x[4:6])
+    # the model axis: 2 does not divide a world of 1 (JAX asserts
+    # n % model_axis == 0), and auto picks 1 on an odd world
+    with pytest.raises(ValueError, match="does not divide"):
+        make_mesh(model_axis=2)
+    assert make_mesh(model_axis=0).shape == {"data": 1, "model": 1}
     for axis in (0, 2):
-        with pytest.raises(NotImplementedError, match="mesh.py:26-29"):
-            make_mesh(model_axis=axis)
-        with pytest.raises(NotImplementedError):
-            config.MeshConfig(model_axis=axis)
+        assert config.MeshConfig(model_axis=axis).model_axis == axis
     with pytest.raises(ValueError, match="process group of 1"):
         make_mesh(world=2)
     assert config.MeshConfig(rank=3, world_size=4).world_size == 4

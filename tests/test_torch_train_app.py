@@ -71,12 +71,20 @@ def test_a_jax_written_config_loads(tmp_path, caplog):
     ({"tracker": {"sampler": "gather2d"}}, ValueError),
     ({"train": {"learning_rte": 1.0}}, KeyError),
     ({"trainer": {}}, KeyError),
-    ({"mesh": {"model_axis": 0}}, NotImplementedError),
-    ({"mesh": {"model_axis": 2}}, NotImplementedError),
+    ({"mesh": {"model_axis": -1}}, ValueError),
 ])
 def test_config_rejects_what_it_cannot_run(bad, error):
     with pytest.raises(error):
         config.from_json(json.dumps(bad))
+
+
+@pytest.mark.parametrize("model_axis", [0, 2])
+def test_config_accepts_the_model_axis(model_axis):
+    """0 (auto) and 2 load, as the JAX app's config takes them; the mesh
+    they give is made by ``run_training`` (tests/test_torch_tp.py)."""
+    ours = config.from_json(json.dumps({"mesh": {"model_axis": model_axis}}))
+    assert ours.mesh.model_axis == model_axis
+    assert config.from_json(config.to_json(ours)) == ours
 
 
 def _raw_items(n, t):

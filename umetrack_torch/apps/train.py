@@ -7,8 +7,12 @@ batch at once (one warp kernel launch per batch), and single-frame or TBPTT
 batches drive ``parallel/train.py``'s step.  ``--synthetic`` trains on
 generated data, so the loop runs without UmeTrack_data.  With
 ``--coordinator host:port --num-processes N --process-id i`` each process
-joins a ``torch.distributed`` group and trains on its block of every global
-batch (NCCL between cards, gloo with ``--device cpu``).  Checkpoints are
+joins a ``torch.distributed`` group (NCCL between cards, gloo with
+``--device cpu``; a group the caller has already joined is used as it is)
+and the processes form a (data, model) mesh: the config's
+``mesh.model_axis`` (1 by default, 0 = auto) splits the large convolutions'
+output channels over the model axis (``parallel/mesh.py``), and each data
+index trains on its block of every global batch.  Checkpoints are
 orbax directories, as the JAX app writes them (``{dir}/step_{step:07d}``
 and ``{dir}/final``; ``utils/orbax.py``), which the JAX package loads too.
 Runs on the GPU unless ``--device cpu`` is given.
@@ -34,7 +38,7 @@ from ..data.transform import RawSequence, parse_raw_buffers, preprocess_sequence
 from ..kinematics.hand import scaled_hand_model
 from ..models.umetrack import FrameInputs, SkeletonInputs
 from ..parallel.distributed import finalize
-from ..parallel.mesh import Mesh, block, make_mesh, shard_variables
+from ..parallel.mesh import Mesh, block, full_state_dict, make_mesh, shard_variables
 from ..parallel.resident import _np_rigid_inverse
 from ..parallel import (
     ClippedAdamW,
@@ -263,9 +267,10 @@ def synthetic_batches(
     """Batches of generated torch_data samples (120 x 160 pinhole frames
     with the hand rendered, ``max(window, 1)`` frames each, 50 distinct
     sequences, alternating hands), built on ``device`` (CUDA unless
-    "cpu").  Under ``distrib_info=(rank, world)`` each global batch of
-    ``batch_size`` sequences is split into ``world`` contiguous blocks and
-    this rank builds block ``rank``, as a mesh's ``data`` axis splits it."""
+    "cpu").  Under ``distrib_info=(index, n)`` (a mesh's data index and
+    data size) each global batch of ``batch_size`` sequences is split into
+    ``n`` contiguous blocks and this rank builds block ``index``, as a
+    mesh's ``data`` axis splits it."""
     from ..utils.synthetic import make_torchdata_sample
 
     rows = block(batch_size, Mesh(data=distrib_info[1], rank=distrib_info[0]))
@@ -288,10 +293,11 @@ def dataset_batches(
     """Batches of the TRAIN split of ``cfg.data.data_roots``, reshuffled per
     epoch, with a random TBPTT window start per batch when
     ``cfg.train.tbptt_window`` > 1; built on ``device`` (CUDA unless
-    "cpu").  Under ``distrib_info=(rank, world)`` (default the config's
-    ``mesh.rank``, ``mesh.world_size``) this rank reads its own shard of the
-    sequences and builds ``batch_size // world`` rows of each global batch;
-    every rank draws the same window starts."""
+    "cpu").  Under ``distrib_info=(index, n)`` (a mesh's data index and
+    data size; default the config's ``mesh.rank``, ``mesh.world_size``)
+    this rank reads shard ``index`` of the sequences and builds
+    ``batch_size // n`` rows of each global batch; every rank draws the
+    same window starts."""
     device = resolve_device(device)
     rank, world = distrib_info or (cfg.mesh.rank, cfg.mesh.world_size)
     rows = block(cfg.train.batch_size, Mesh(data=world, rank=rank))
@@ -322,10 +328,12 @@ def dataset_batches(
         epoch += 1
 
 
-def _checkpoint(model, path: str) -> str:
-    path = save_checkpoint(path, model.state_dict())
-    logger.info("saved checkpoint %s", path)
-    return path
+def _checkpoint(model, mesh: Mesh, path: str) -> None:
+    """Save the whole model from rank 0.  Every rank calls it: the sharded
+    weights are gathered over the model group first."""
+    state = full_state_dict(model, mesh)
+    if mesh.rank == 0:
+        logger.info("saved checkpoint %s", save_checkpoint(path, state))
 
 
 def run_training(
@@ -334,6 +342,7 @@ def run_training(
     num_steps: Optional[int] = None,
     init_checkpoint: Optional[str] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ):
     """Train a fresh model of ``cfg.model`` (or the weights of
     ``init_checkpoint``: a ``.msgpack`` or ``.torch`` file or an orbax
@@ -341,20 +350,22 @@ def run_training(
     batches (default ``cfg.train.num_steps``): AdamW with global-norm
     clipping at 1.0, a constant or warmup-cosine learning rate.  Batches
     are built one or two ahead in a host thread.  Under a process group
-    every rank runs this with its own block of each global batch
-    (``synthetic_batches`` / ``dataset_batches`` with the rank's
-    ``distrib_info``): the weights are broadcast from rank 0, each step
-    trains on the global batch (``parallel/train.py``), and only rank 0
-    writes checkpoints.  Returns (state, history of the logged losses)."""
+    every rank runs this on ``mesh`` (default ``make_mesh(model_axis=
+    cfg.mesh.model_axis)``), with its data index's block of each global
+    batch (``synthetic_batches`` / ``dataset_batches`` with ``distrib_info
+    =(mesh.data_index, mesh.data)``): the weights are broadcast from rank 0
+    and sharded over the model axis, each step trains on the global batch
+    (``parallel/train.py``), and each checkpoint is gathered by every rank
+    and written by rank 0.  Returns (state, history of the logged losses)."""
     device = resolve_device(device)
     model = init_train_model(cfg.model, seed=0, device=device)
     if init_checkpoint:
         model.load_state_dict(load_checkpoint(init_checkpoint, cfg.model))
         logger.info("resumed weights from %s", init_checkpoint)
-    mesh = make_mesh()
+    mesh = mesh or make_mesh(model_axis=cfg.mesh.model_axis)
     shard_variables(model, mesh)
     logger.info("mesh: %s, rank %d", mesh.shape, mesh.rank)
-    writes_checkpoints = bool(cfg.train.checkpoint_dir) and mesh.rank == 0
+    saves = bool(cfg.train.checkpoint_dir)
 
     num_steps = num_steps or cfg.train.num_steps
     if cfg.train.lr_schedule == "cosine":
@@ -370,7 +381,8 @@ def run_training(
     # global-norm clipping guards the TBPTT step against rare exploding
     # batches (e.g. NLL spikes right after a domain shift)
     state = create_train_state(
-        model, ClippedAdamW(model.parameters(), lr, cfg.train.weight_decay, max_grad_norm=1.0)
+        model, ClippedAdamW(model.parameters(), lr, cfg.train.weight_decay, max_grad_norm=1.0,
+                            mesh=mesh)
     )
     weights = LossWeights(
         angles=cfg.train.loss_angles,
@@ -398,10 +410,10 @@ def run_training(
                 step, loss, float(metrics["angle_loss"]), float(metrics["point_loss"]),
                 float(metrics["landmark_nll"]), (step + 1) / (time.time() - t_start),
             )
-        if writes_checkpoints and step > 0 and step % cfg.train.checkpoint_every == 0:
-            _checkpoint(model, f"{cfg.train.checkpoint_dir}/step_{step:07d}")
-    if writes_checkpoints:
-        _checkpoint(model, f"{cfg.train.checkpoint_dir}/final")
+        if saves and step > 0 and step % cfg.train.checkpoint_every == 0:
+            _checkpoint(model, mesh, f"{cfg.train.checkpoint_dir}/step_{step:07d}")
+    if saves:
+        _checkpoint(model, mesh, f"{cfg.train.checkpoint_dir}/final")
     return state, history
 
 
@@ -444,15 +456,16 @@ def main(argv=None):
         raise SystemExit("--data or the config's data_roots is required (or --synthetic)")
     device = resolve_device(args.device)
     joined = join_process_group(args)
-    shard = joined or (0, 1)
     try:
+        mesh = make_mesh(model_axis=cfg.mesh.model_axis)
+        shard = (mesh.data_index, mesh.data)
         if args.synthetic:
             batches = synthetic_batches(
                 cfg.train.batch_size, cfg.data.crop_size, cfg.train.tbptt_window, device, shard
             )
         else:
             batches = dataset_batches(cfg, device, shard)
-        return run_training(cfg, batches, device=device)
+        return run_training(cfg, batches, device=device, mesh=mesh)
     finally:
         if joined:
             finalize()

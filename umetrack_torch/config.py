@@ -14,7 +14,6 @@ import logging
 from typing import Optional, Tuple
 
 from .models.config import ModelConfig
-from .parallel.mesh import TP_NOT_PORTED
 from .tracker.types import SAMPLERS, TrackerConfig
 
 logger = logging.getLogger(__name__)
@@ -47,17 +46,18 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """``rank`` / ``world_size``: this process's shard of the host-local
-    work (``parallel/distributed.py``); ``model_axis``: the tensor-parallel
-    axis, which the port keeps at 1 (``parallel/mesh.py``: other values,
-    the JAX package's 0 = auto included, raise)."""
+    work (``parallel/distributed.py``); ``model_axis``: the size of the
+    tensor-parallel axis of the train app's mesh (``parallel/mesh.py``),
+    1 for pure data parallelism, 0 for auto (2 on an even number of
+    processes, else 1)."""
 
     model_axis: int = 1
     rank: int = 0
     world_size: int = 1
 
     def __post_init__(self):
-        if self.model_axis != 1:
-            raise NotImplementedError(TP_NOT_PORTED.format(self.model_axis))
+        if self.model_axis < 0:
+            raise ValueError(f"model_axis {self.model_axis}: use 0 (auto), 1 or more")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,7 +33,14 @@ class Conv(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype``, as flax's ``nn.Conv(
     dtype=...)`` does: the input, the f32 weight and the f32 bias are cast
     to it (the weight stays an f32 ``Parameter``; its gradient reaches it
-    through the cast) and the output is in it."""
+    through the cast) and the output is in it.
+
+    ``model_group`` is set by ``parallel/mesh.py::shard_variables`` when the
+    weight is this rank's slice of the output channels: the layer then
+    computes its slice and gathers the rest over the group, in the compute
+    dtype (``parallel/collectives.py``)."""
+
+    model_group = None
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -42,12 +49,20 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(d)
-        return self._conv_forward(x.to(d), self.weight.to(d), bias)
+        if self.model_group is None:
+            return self._conv_forward(x.to(d), self.weight.to(d), bias)
+        from ..parallel.collectives import copy_to_model, gather_from_model
+
+        g = self.model_group
+        y = gather_from_model(self._conv_forward(copy_to_model(x.to(d), g), self.weight.to(d), None), 1, g)
+        return y if bias is None else y + bias[:, None, None]
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype``, as flax's ``nn.Dense(
-    dtype=...)`` does (see :class:`Conv`)."""
+    dtype=...)`` does; ``model_group`` as in :class:`Conv`."""
+
+    model_group = None
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -55,7 +70,12 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
-        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        if self.model_group is None:
+            return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        from ..parallel.collectives import copy_to_model, gather_from_model
+
+        g = self.model_group
+        return gather_from_model(F.linear(copy_to_model(x.to(d), g), self.weight.to(d)), -1, g) + self.bias.to(d)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -68,7 +88,10 @@ class BatchNorm(nn.BatchNorm2d):
 
     Under a ``torch.distributed`` process group (of any size) train mode
     normalises with the statistics of the GLOBAL batch, as the JAX train
-    step does over its mesh: see :meth:`_synchronised`.
+    step does over its mesh: see :meth:`_synchronised`.  ``data_group`` is
+    the group it reduces over (None: the whole process group); on a mesh
+    with a ``model`` axis ``parallel/mesh.py::shard_variables`` sets it to
+    the data group, since the model ranks hold the same rows.
 
     The statistics, the scale and the bias are f32 whatever the input's
     dtype, and the normalisation runs in f32 (PyTorch's ``batch_norm``
@@ -76,6 +99,8 @@ class BatchNorm(nn.BatchNorm2d):
     rounded once, to ``compute_dtype``, as flax's ``nn.BatchNorm(dtype=
     ...)`` rounds it.  In train mode the batch statistics are reduced in
     f32, as flax's ``force_float32_reductions`` does."""
+
+    data_group = None
 
     def __init__(self, num_features: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
@@ -112,7 +137,8 @@ class BatchNorm(nn.BatchNorm2d):
         dims = (0, 2, 3)
         x = x.float()
         count = torch.full_like(self.running_mean, x.numel() // x.shape[1])
-        moments = all_reduce(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
+        moments = all_reduce(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims), count]),
+                             group=self.data_group)
         mean = moments[0] / moments[2]
         var = torch.clamp(moments[1] / moments[2] - mean * mean, min=0.0)
         with torch.no_grad():

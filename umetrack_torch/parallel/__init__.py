@@ -1,9 +1,18 @@
 """Training and evaluation across processes: the supervised step
 (``train``), its optimizer (``optim``), the device-resident trainer
 (``resident``), the batched and sharded evaluation (``eval``), the process
-group (``distributed``) and the data-parallel mesh over it (``mesh``)."""
-from . import distributed, eval, mesh, optim, resident, train
-from .mesh import make_mesh, shard_batch, shard_variables
+group (``distributed``), the (data, model) mesh over it (``mesh``) and the
+model axis's collectives (``collectives``)."""
+from . import collectives, distributed, eval, mesh, optim, resident, train
+from .mesh import (
+    batch_sharding,
+    full_state_dict,
+    make_mesh,
+    param_sharding,
+    replicated,
+    shard_batch,
+    shard_variables,
+)
 from .optim import ClippedAdamW, warmup_cosine_decay_schedule
 from .train import (
     LossWeights,
@@ -20,10 +29,15 @@ from .train import (
 )
 
 __all__ = [
+    "collectives",
     "distributed",
     "eval",
     "mesh",
+    "batch_sharding",
+    "full_state_dict",
     "make_mesh",
+    "param_sharding",
+    "replicated",
     "shard_batch",
     "shard_variables",
     "optim",

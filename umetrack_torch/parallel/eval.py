@@ -3,16 +3,18 @@
 Counterpart of ``umetrack_tpu/parallel/eval.py``.  S sequences are tracked
 in lock-step (``track_sequences_batched``: one ``warp_pool`` launch for all
 their frames) and each gets its mean landmark error.  Across processes the
-sequences shard by rank in contiguous blocks (:func:`shard_eval_inputs`,
-rows ``2i, 2i+1`` of the tracker state go with sequence ``i``), the
-recurrence keeps each sequence on one card, the weights are replicated,
-and the per-sequence results and the global mean are reduced with the
-process group's collectives, where the JAX package lets XLA insert them
-on its mesh.
+sequences shard by data index in contiguous blocks
+(:func:`shard_eval_inputs`, rows ``2i, 2i+1`` of the tracker state go with
+sequence ``i``) and the recurrence keeps each sequence on one rank; the
+ranks of a model group track the same sequences with the weights sharded
+over them (``parallel/mesh.py::shard_variables``).  The per-sequence
+results and the global mean are reduced over the data group
+(``parallel/collectives.py::gather_blocks``), where the JAX package lets
+XLA insert the collectives on its mesh.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -23,21 +25,15 @@ from ..models.umetrack import UmeTrackNet
 from ..tracker.crops import landmarks_from_pose
 from ..tracker.tracker import calibrate_sequences_batched, track_sequences_batched
 from ..tracker.types import CameraRig, FrameObservation, TrackerConfig, TrackState
+from .collectives import gather_blocks
 from .distributed import is_initialized
-from .mesh import Mesh, block
+from .mesh import Mesh, block, data_group_of
 
 
 def make_batched_state(model: UmeTrackNet, n_sequences: int, device=None) -> TrackState:
     """Flat ``[2S]``-row tracker state for the batched and sharded path, on
     ``device`` (CUDA unless "cpu")."""
     return TrackState.init(model.config, 2 * n_sequences, device=resolve_device(device))
-
-
-def _all_gather(x: torch.Tensor) -> torch.Tensor:
-    """The ranks' equal blocks of ``x`` concatenated in rank order."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts)
 
 
 @torch.inference_mode()
@@ -64,9 +60,9 @@ def eval_sequences_batched(
     Returns (per-sequence error [S], valid slots per sequence [S], global
     mean): the mean over the sequences with at least one valid slot.  Under
     a process group the inputs are this rank's shard
-    (:func:`shard_eval_inputs`) and the results are global: the ranks'
-    per-sequence blocks gathered in rank order, the mean reduced from every
-    rank's masked sum and count."""
+    (:func:`shard_eval_inputs`) and the results are global: the data ranks'
+    per-sequence blocks gathered in data order, the mean reduced from every
+    data rank's masked sum and count."""
     results, _ = track_sequences_batched(
         model, config, rigs, seqs, init_state, hand_models_mm, min_num_crops,
         skel_hand_models_mm, device=device,
@@ -92,8 +88,9 @@ def eval_sequences_batched(
     has_valid = (n_valid > 0).to(err.dtype)
     totals = torch.stack([(per_seq_err * has_valid).sum(), has_valid.sum()])
     if is_initialized():
-        per_seq_err, n_valid = _all_gather(per_seq_err), _all_gather(n_valid)
-        dist.all_reduce(totals)
+        group = data_group_of(model)
+        per_seq_err, n_valid = gather_blocks(per_seq_err, 0, group), gather_blocks(n_valid, 0, group)
+        dist.all_reduce(totals, group=group)
     return per_seq_err, n_valid, totals[0] / torch.clamp(totals[1], min=1.0)
 
 
@@ -132,22 +129,24 @@ def eval_sequences_unknown_batched(
         device=device,
     )
     if is_initialized():
-        scales = _all_gather(scales)
+        scales = gather_blocks(scales, 0, data_group_of(model))
     return per_seq, n_valid, global_mean, scales
 
 
-def shard_eval_inputs(
-    rank: int, world: int, rigs: CameraRig, seqs: FrameObservation,
-    init_state: TrackState, hand_models: HandModel,
-):
-    """This rank's contiguous block of the S-leading inputs and the matching
-    ``[2S]`` state rows (rows ``2i, 2i+1`` live with sequence ``i``): the
-    split a ``NamedSharding`` over ``data`` makes.  Raises unless ``world``
-    divides S."""
-    mesh = Mesh(data=world, rank=rank)
+def shard_eval_inputs(mesh: Union[Mesh, int], *args):
+    """``shard_eval_inputs(mesh, rigs, seqs, init_state, hand_models)``, as
+    the JAX package's, or ``shard_eval_inputs(rank, world, rigs, ...)`` for
+    a data-only mesh: this data index's contiguous block of the S-leading
+    inputs and the matching ``[2S]`` state rows (rows ``2i, 2i+1`` live with
+    sequence ``i``), the split a ``NamedSharding`` over ``data`` makes; the
+    ranks of one model group take the same block.  Raises unless the data
+    axis divides S."""
+    if not isinstance(mesh, Mesh):
+        mesh, args = Mesh(data=args[0], rank=mesh), args[1:]
+    rigs, seqs, init_state, hand_models = args
     s = rigs.fx.shape[0]
-    if s % world:
-        raise ValueError(f"{s} sequences do not split over {world} ranks")
+    if s % mesh.data:
+        raise ValueError(f"{s} sequences do not split over {mesh.data} ranks")
 
     def leading(tree):
         return tree.map(lambda a: a[block(a.shape[0], mesh)])

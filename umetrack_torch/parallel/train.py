@@ -37,7 +37,10 @@ global loss; BatchNorm normalises with the global batch's statistics
 (``models/backbone.py``); ``ClippedAdamW`` sums the gradients over the
 ranks before clipping; and the returned metrics are summed over the ranks,
 i.e. the global batch's.  Per-rank means averaged over ranks would differ
-whenever the ranks hold different numbers of valid rows.
+whenever the ranks hold different numbers of valid rows.  On a mesh with a
+``model`` axis (``parallel/mesh.py::shard_variables``) the ranks of a model
+group hold the same rows, so every such sum runs over the data group
+(``model.mesh``).
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ from ..models.backbone import BatchNorm
 from ..models.components import gen_rigid_points
 from ..models.umetrack import FrameInputs, SkeletonInputs, TemporalState, UmeTrackNet, make_model
 from .distributed import is_initialized
+from .mesh import data_group_of
 from .optim import ClippedAdamW
 
 
@@ -146,20 +150,20 @@ def running_stats_kept(model: UmeTrackNet):
                 b.copy_(s)
 
 
-def _global_count(count: torch.Tensor) -> torch.Tensor:
-    """A normalising count summed over the process group, at least 1."""
+def _global_count(count: torch.Tensor, group=None) -> torch.Tensor:
+    """A normalising count summed over the data ranks, at least 1."""
     if is_initialized():
         count = count.detach().clone()
-        dist.all_reduce(count)
+        dist.all_reduce(count, group=group)
     return torch.clamp(count, min=1.0)
 
 
-def _global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Detached metrics; under a process group each is the sum of the
+def _global_metrics(metrics: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+    """Detached metrics; under a process group each is the sum of the data
     ranks' shares, i.e. the global batch's value."""
     values = torch.stack([v.detach() for v in metrics.values()])
     if is_initialized():
-        dist.all_reduce(values)
+        dist.all_reduce(values, group=group)
     return dict(zip(metrics, values))
 
 
@@ -228,11 +232,11 @@ def _frame_losses(
     return angle_loss, point_loss, nll, count
 
 
-def _scale_loss(out_u, gt_scales: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+def _scale_loss(out_u, gt_scales: torch.Tensor, valid: Optional[torch.Tensor], group) -> torch.Tensor:
     """Log-scale MSE over the valid rows."""
     w_row = torch.ones_like(gt_scales) if valid is None else valid.to(gt_scales.dtype)
     sq = (torch.log(out_u.skel_scales) - torch.log(gt_scales)) ** 2
-    return torch.sum(w_row * sq) / _global_count(w_row.sum())
+    return torch.sum(w_row * sq) / _global_count(w_row.sum(), group)
 
 
 def loss_fn(
@@ -248,7 +252,8 @@ def loss_fn(
         model, out, batch.frame, batch.gt_joint_angles, batch.gt_wrist_world, batch.hand,
         batch.valid, rot_gain=weights.wrist_rot_gain,
     )
-    denom = _global_count(count)
+    group = data_group_of(model)
+    denom = _global_count(count, group)
     angle_loss, point_loss, nll = angle_loss / denom, point_loss / denom, nll / denom
     total = (weights.angles * angle_loss + weights.wrist_points * point_loss
              + weights.landmark_nll * nll)
@@ -257,14 +262,14 @@ def loss_fn(
     if batch.gt_scales is not None:
         with running_stats_kept(model):
             out_u, _ = model.predict_scale(batch.frame, state)
-        scale_loss = _scale_loss(out_u, batch.gt_scales, batch.valid)
+        scale_loss = _scale_loss(out_u, batch.gt_scales, batch.valid, group)
         total = total + weights.scale * scale_loss
 
     metrics = {
         "loss": total, "angle_loss": angle_loss, "point_loss": point_loss,
         "landmark_nll": nll, "scale_loss": scale_loss,
     }
-    return total, _global_metrics(metrics)
+    return total, _global_metrics(metrics, group)
 
 
 def _second_diff(x: torch.Tensor) -> torch.Tensor:  # [K, ...] -> [K-2, ...]
@@ -300,7 +305,7 @@ def _accel_loss(
         (e0_t @ _x_mirrored(gt_wrist_t, hand_idx_t))[:, :, None], _rigid_points(model, e0_t)
     )
     valid3 = (valid_t[2:] & valid_t[:-2] & valid_t[1:-1]).to(torch.float32)  # [K-2, B]
-    n3 = _global_count(valid3.sum())
+    n3 = _global_count(valid3.sum(), data_group_of(model))
 
     def term(pred, gt):
         d = _second_diff(pred) - _second_diff(gt)
@@ -340,7 +345,8 @@ def temporal_loss_fn(
     # rows are (sum, sum, sum, count): normalise over ALL valid (row, frame)
     # supervision slots of the window
     sums = torch.stack(per_step).sum(dim=0)
-    denom = _global_count(sums[3])
+    group = data_group_of(model)
+    denom = _global_count(sums[3], group)
     angle_loss, point_loss, nll = sums[0] / denom, sums[1] / denom, sums[2] / denom
 
     accel_loss = torch.zeros((), device=device)
@@ -356,14 +362,14 @@ def temporal_loss_fn(
     if batch.gt_scales is not None:
         out_u, _ = model.predict_scale(batch.frames.map(lambda a: a[:, 0]), state0)
         scale_loss = _scale_loss(
-            out_u, batch.gt_scales, None if batch.valid is None else batch.valid[:, 0]
+            out_u, batch.gt_scales, None if batch.valid is None else batch.valid[:, 0], group
         )
         total = total + weights.scale * scale_loss
     metrics = {
         "loss": total, "angle_loss": angle_loss, "point_loss": point_loss,
         "landmark_nll": nll, "scale_loss": scale_loss, "accel_loss": accel_loss,
     }
-    return total, _global_metrics(metrics)
+    return total, _global_metrics(metrics, group)
 
 
 def _apply_grads(state: TrainState, total: torch.Tensor) -> None:
