@@ -31,7 +31,14 @@ exits non-zero without a result line:
    frames/s, peak memory, each under the profiler with its device time by
    kind of kernel (BN, ReLU, add, layout, convolutions, the pool kernel),
    bf16 against f32 (TF32 off) at ``tests/test_bf16.py``'s bounds, and
-   ``eval_sequences_batched`` in bf16;
+   ``eval_sequences_batched`` in bf16; then ``[bench]``: the tracker bench
+   ``python -m umetrack_torch.bench --no-reference`` in subprocesses, (a)
+   as it runs by default (bf16, S=64 x T=16, the pool kernel), (b) with
+   ``--dtype float32 --breakdown``, (c) ``--sampler kernel_win`` and (d)
+   ``--sampler kernel_full`` at S=8 x T=4: its one JSON line, a
+   torch-counted 3.8-4.0 GFLOP a frame, the warp launches equal to the
+   calls the run made, its ``[bench]`` line with the card's name and power
+   limit, and beside (a) this phase's bf16 ms a call;
 5. the two single-image warp kernels (``warp_image_full``,
    ``warp_image_windowed``) against their plain version: the torch_data
    shape (512 images of 480 x 640, uint8 and f32, coordinate fields from
@@ -104,11 +111,18 @@ exits non-zero without a result line:
    running both batched protocols at S=4 x T=8 with seeded weights and the
    checkpoint (one + two ``warp_pool`` launches), ``train_step`` and
    ``temporal_train_step`` at full width (B=4) and at the small config of
-   ``tests/test_torch_tp.py``, and the train app's ``main`` with ``{"mesh":
+   ``tests/test_torch_tp.py``, the checkpoint's ``_model_scan`` on its rows
+   of crops prepared once with no group (held at the sharded-eval bounds:
+   the same crops take the crop fit out of the data split's gap), and the
+   train app's ``main`` with ``{"mesh":
    {"model_axis": 2}}`` (one ``warp_image_full`` launch a batch; its orbax
    ``final`` reloads unsharded to the same forward); all against the same
    calls with no group, the replicated parameters equal bit for bit across
    the model ranks, and ``model_axis`` 0 giving model 2 in a world of 2;
+   the full-width gradients leaf by leaf against the same steps in a
+   process group of one, at TP_FLOOR_FACTOR x floors measured beside them
+   (a nudge of the images in that group, cuDNN on against off there, and a
+   data-only group of 2), in a world of 2 with cuDNN off on both sides;
 10. the training path at the full width of ``ModelConfig()`` (f32): one
    ``train_step`` and one ``temporal_train_step`` (K=4) on the card against
    the CPU at the CPU tests' small config and bounds (loss, metrics, every
@@ -246,10 +260,26 @@ R5_CHECKPOINT = os.path.join(HERE, "checkpoints", "synthetic_r5.msgpack")
 # and inputs, so only a different choice of cuDNN algorithm could part them
 DIAGNOSE_RTOL = 1e-4
 LOOP_SEQS, LOOP_T, LOOP_STEPS, LOOP_BATCH = 4, 8, 2, 4
+# the tracker bench (python -m umetrack_torch.bench) as subprocesses: the
+# default (bf16, S=64 x T=16, the pool kernel), f32 with the prep breakdown,
+# and the two single-image kernels at a small shape
+BENCH_SMALL = (8, 4)  # S, T of runs (c) and (d)
+BENCH_RUNS = (("(a) default", []), ("(b) f32 breakdown", ["--dtype", "float32", "--breakdown"]),
+              *((f"({run}) {sampler}", ["--sampler", sampler, "--seqs", str(BENCH_SMALL[0]),
+                                        "--t", str(BENCH_SMALL[1])])
+                for run, sampler in (("c", "kernel_win"), ("d", "kernel_full"))))
+BENCH_DEPTH = 4  # bench_ours' pipeline_depth
+# the one warp kernel a track_sequences_batched call launches, once, by sampler
+BENCH_KERNEL = {"kernel": "warp_pool", "kernel_win": "warp_image_windowed", "kernel_full": "warp_image_full"}
+BENCH_GFLOP = (3.8, 4.0)  # torch-counted GFLOP a frame of ModelConfig() (3.915 on the CPU)
+BENCH_TIMEOUT_S = 240
 # [tp]: groups of processes sharing card 0 over gloo, a (world / 2, 2) mesh;
 # the eval bounds are tests/test_parallel.py's sharded-eval ones (TRAINED's
-# for the checkpoint on a data split, where each rank batches otherwise
-# than the call with no group), the train bounds phase 9's; TP_FORWARD_TOL holds the reloaded checkpoint's forward
+# for the checkpoint on a data split, where each rank fits the crops of its
+# own sequences: on the SAME crops, prepared once with no group, the
+# checkpoint's scan on each rank's rows holds the strict bounds, 1.3e-5 mm
+# on an H100 80GB HBM3, so the crop fit is the cause), the train bounds
+# phase 9's; TP_FORWARD_TOL holds the reloaded checkpoint's forward
 # against the sharded model's (cuDNN may pick other algorithms for the
 # halved output widths)
 TP_WORLDS, TP_MODEL = (2, 4), 2
@@ -259,22 +289,46 @@ TP_APP_STEPS, TP_APP_BATCH, TP_APP_WINDOW = 2, 4, 2
 TP_EVAL_MM, TP_EVAL_RTOL, TP_NORM_RTOL = 1e-3, 1e-4, 1e-5
 # At the full width with B=4 rows a step's gradient is ill-conditioned: a
 # relative nudge of 1e-7 to the images (below f32 rounding) moves some leaves
-# by up to 5e-3 relative L2 with no group, and splitting the rows over data
-# ranks (the synchronised BatchNorm's partial sums) moves BatchNorm leaves of
-# the TBPTT step by up to 1.6e-2 with or without the model axis (measured on
-# the CPU), past phase 9's bounds.  So there the metrics, the running stats
-# and the replicas are gated and the gradient gap is printed beside what a
-# nudge moves; the gradients and the norm are gated at phase 9's bounds on
+# by ~1e-2 relative L2, and splitting the rows over data ranks (the
+# synchronised BatchNorm's partial sums) by as much, past phase 9's bounds.
+# Under any process group BatchNorm normalises with flax's one-pass variance
+# E[x^2] - E[x]^2 (models/backbone.py::BatchNorm._synchronised), with none
+# with the two-pass one, and at full width that alone moves leaves by ~1e-2
+# (printed).  So there each gradient leaf and the global norm are held
+# against the same step in a process group of ONE (data 1 x model 1, the
+# same BatchNorm), at TP_FLOOR_FACTOR x its own floor: the larger of the
+# gaps that TP_GATES names for the split, each measured here against that
+# step with the same cuDNN setting (the images nudged in the group of one;
+# the data split by a data-only group of 2, data 2 x model 1).  The
+# gradients and the norm are gated at phase 9's bounds on
 # tests/test_torch_tp.py's small config and batches, which a nudge moves by
 # at most 5e-5 (measured on the CPU).
 TP_SMALL = dict(start_planes=16, backbone_blocks=(1, 1, 1, 1), n_image_feature_channels=12,
                 n_memory_channels=6)
 TP_SMALL_B, TP_SMALL_SEED, TP_SMALL_VALID = 6, 3, (True, True, True, True, False, False)
+# measured (H100 80GB HBM3, 700 W): at most 1.00 and 1.00 x the floor in a
+# world of 4 (train_step, temporal_train_step), 1.06 and 0.53 in a world of
+# 2 with cuDNN off; with copy_to_model's backward leaving the gradient
+# unsummed (a planted fault) every leaf is past it, the worst at 19,841 x
+TP_FLOOR_FACTOR = 2.0
+# (world, cuDNN on) -> the floors of its full-width gradients, or None:
+# printed, not gated.  In a world of 2 (all B=4 rows on each rank) cuDNN
+# runs the half-width convolutions through other FFT tilings than the
+# whole-width ones (the kernel names are printed), which move nearly every
+# leaf past its floor; with cuDNN off on both sides (PyTorch's own
+# convolutions) the same split, the same model-axis code, is gated leaf by
+# leaf.  There the model axis computes every sharded convolution in
+# another order, which the nudge does not perturb: "another order" is the
+# group of one with cuDNN on against the same with it off, and the leaves
+# that pass only under it are printed by name.
+TP_GATES = {(2, True): None, (2, False): ("images nudged", "another order"),
+            (4, True): ("images nudged", "data split")}
 TP_FORWARD_TOL = 1e-4
 TP_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
+NEAREST_LIBRARY = "torch.nn.functional.grid_sample on an f32 copy: NOT the same function"
 NO_LIBRARY = ("no single PyTorch call computes this function (grid_sample zero-pads "
               "per tap, not per floor cell, and takes float images and normalised grids)")
 
@@ -737,6 +791,32 @@ def byte_bound(pool, coords, src_idx):
     return bound_ms, bound_by, text
 
 
+def grid_sample_ms(images, coords, src_idx=None, reps=5):
+    """The time of the nearest PyTorch call, which is NOT the same function
+    (NO_LIBRARY): ``grid_sample`` (bilinear, zero padding, align_corners) on
+    an f32 copy of the images at the same source pixels, normalised outside
+    the timed call; with ``src_idx`` a 5-D sample whose depth coordinate
+    picks each warp's pool image, exactly, so each warp reads its own."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = images.shape[-2:]
+    scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=coords.device)
+    grid = coords * scale - 1.0
+    if src_idx is not None:  # [1, 1, M, H, W] sampled at [1, Wn, h, w, 3]
+        m = images.shape[0]
+        z = (2.0 * src_idx.float() / max(m - 1, 1) - 1.0).view(-1, 1, 1, 1).expand(*grid.shape[:-1], 1)
+        src, grid = images.float()[None, None], torch.cat([grid, z], dim=-1)[None]
+    elif images.dim() == 2:  # one image, any coordinate list
+        src, grid = images.float()[None, None], grid.reshape(1, -1, 1, 2)
+    else:  # [N, H, W], coords [N, ..., 2]
+        src, grid = images.float()[:, None], grid.reshape(images.shape[0], -1, 1, 2)
+    ms = median_ms(lambda: F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                                         align_corners=True), reps=reps, warmup=1)
+    del src, grid
+    return ms
+
+
 def edge_cases(device):
     """(pool, coords, src_idx) cases: duplicated sources, out of bounds,
     -1, NaN, inf, W-1 and H-1 exactly, the last valid cell, and shapes that
@@ -927,9 +1007,11 @@ def phase_kernel(wp_mod, rigs, seqs, hands, card):
     log(f"[kernel] stream_ms {stream_ms:.4f} (the streaming floor: coords.sum(-1), "
         f"{coords.numel() * 4 / 1e6:.1f} MB in, {coords.numel() * 2 / 1e6:.1f} MB out, no taps; back to back); "
         f"the same bytes as an elementwise cast {cast_ms:.4f} ms [{card}]")
-    log(f"[kernel] library_ms null: {NO_LIBRARY}; it would also need a per-warp image")
+    nearest_ms = grid_sample_ms(pool, coords, src)
+    log(f"[kernel] library_ms null: {NO_LIBRARY}; the nearest call, a 5-D grid_sample on an f32 copy "
+        f"of the pool (NOT the same function): {nearest_ms:.4f} ms [{card}]")
     kern = dict(max_abs_err=max(err, edge_err), ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, grid_sample_ms=nearest_ms)
     return kern, (pool, coords, src)
 
 
@@ -1032,6 +1114,7 @@ def time_image_kernels(wi_mod, images, coords, label, card, plain_reps=5):
     bound_ms, bound_by, text = byte_bound(
         images, coords, torch.arange(n, dtype=torch.int32, device=images.device))
     plain_ms = median_ms(lambda: bilinear_sample_plain(images, coords), reps=plain_reps, warmup=1)
+    nearest_ms = grid_sample_ms(images, coords, reps=plain_reps)
     pixels = coords.numel() // 2 // n
     full_alone = lambda: wi_mod._launch_full(images, coords, n, pixels)
     small = _tiles.small_image(*images.shape[-2:])  # the windowed wrapper runs the full kernel
@@ -1044,11 +1127,13 @@ def time_image_kernels(wi_mod, images, coords, label, card, plain_reps=5):
         fn = getattr(wi_mod, name)
         ms = median_ms(lambda: fn(images, coords), reps=20)
         kernel_ms = device_ms(launch)
-        out[name] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        out[name] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         grid_sample_ms=nearest_ms)
         log(f"[image-kernels] {label}: {name} {ms:.4f} ms a call of the wrapper (median of 20 single "
             f"calls), kernel alone {kernel_ms:.4f} ms (device time, mean of 20 launches), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({text}), roofline share "
-            f"{bound_ms / ms:.3f} of a call, {bound_ms / kernel_ms:.3f} of the kernel alone [{card}]")
+            f"{bound_ms / ms:.3f} of a call, {bound_ms / kernel_ms:.3f} of the kernel alone; grid_sample on "
+            f"an f32 copy (not the same function) {nearest_ms:.4f} ms [{card}]")
     return out
 
 
@@ -1557,6 +1642,25 @@ class tf32_off:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
 
 
+class cudnn_enabled:
+    """``torch.backends.cudnn.enabled`` set to ``flag`` inside, the earlier
+    value restored after."""
+
+    def __init__(self, flag):
+        self.flag = flag
+
+    def __enter__(self):
+        import torch
+
+        self.saved = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = self.flag
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.enabled = self.saved
+
+
 def track_diff(a, b):
     check(bool((a.valid == b.valid).all()), "valid masks differ")
     v = a.valid
@@ -1696,6 +1800,7 @@ def pool_shape_row(wp_mod, label, pool, coords, src, card):
     seen = device_ms.seen
     check_ms = burst_ms(lambda: wp_mod._check(pool, coords, src), BURST)
     plain_ms = median_ms(lambda: bilinear_sample_pool_plain(pool, coords, src), reps=10)
+    nearest_ms = grid_sample_ms(pool, coords, src, reps=10)
     bound_ms, bound_by, text = byte_bound(pool, coords, src)
     log(f"[kernel] {label}: pool {tuple(pool.shape)} uint8, {coords.shape[0]} warps of "
         f"{tuple(coords.shape[1:3])}, path vector, max_abs_err {err:.3e}, bit for bit "
@@ -1703,10 +1808,10 @@ def pool_shape_row(wp_mod, label, pool, coords, src, card):
         f"{ms:.4f} ms a call of the wrapper (its src_idx range check alone {check_ms:.4f} ms), kernel "
         f"alone {kernel_ms:.4f} ms (device time, the profiler saw {seen} of 40 launches), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({text}), share {bound_ms / kernel_ms:.3f} of "
-        f"the kernel alone [{card}]")
+        f"the kernel alone; grid_sample on an f32 copy (not the same function) {nearest_ms:.4f} ms [{card}]")
     return dict(shape=label, pool=list(pool.shape), warps=coords.shape[0], max_abs_err=err,
                 ms=ms, kernel_ms=kernel_ms, check_ms=check_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, grid_sample_ms=nearest_ms)
 
 
 def same_crops_gap(model, config, rig, seq, hand):
@@ -2319,6 +2424,58 @@ def phase_process_group(model, tally, rigs, seqs, hands, unsharded, card):
         f"multi-GPU number is measured [{card}]")
 
 
+# ---- the tracker bench ------------------------------------------------------
+
+
+def phase_bench(bf16_ms, card):
+    """``[bench]``: ``python -m umetrack_torch.bench --no-reference`` in a
+    subprocess for each of BENCH_RUNS, each given BENCH_TIMEOUT_S (a
+    failure, a time-out or a malformed line fails the script): its one JSON
+    line, a torch-counted FLOP count in BENCH_GFLOP, and the warp launches
+    equal to the calls the run made (the warm-up, the FLOP pass, the
+    pipelined calls and under ``--breakdown`` the prep warm-up and reps),
+    one of BENCH_KERNEL's kernel for the run's sampler a call and none of
+    the others.  Returns the launches by kernel and run."""
+    import re
+
+    from umetrack_torch.bench import BREAKDOWN_REPS, WARP_KERNELS
+
+    by_run = {kernel.__name__: {} for kernel in WARP_KERNELS}
+    for label, args in BENCH_RUNS:
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "umetrack_torch.bench", "--no-reference", *args], cwd=HERE,
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        check(done.returncode == 0, f"[bench] {label}: exit {done.returncode}:\n{done.stderr[-3000:]}")
+        lines = done.stdout.strip().splitlines()
+        check(len(lines) == 1, f"[bench] {label}: stdout {done.stdout!r}")
+        result = json.loads(lines[-1])
+        check(list(result) == ["metric", "value", "unit", "vs_baseline"]
+              and result["metric"] == "tracker_frames_per_s_per_chip" and result["unit"] == "frames/s"
+              and result["value"] > 0 and result["vs_baseline"] is None, f"[bench] {label}: {result}")
+        line = [ln for ln in done.stderr.splitlines() if ln.startswith("[bench]")]
+        check(len(line) == 1, f"[bench] {label}: stderr {done.stderr[-3000:]}")
+        line = line[0]
+        flops = re.search(r"torch-counted ([0-9.]+) GFLOP/frame", line)
+        check(flops is not None and BENCH_GFLOP[0] <= float(flops.group(1)) <= BENCH_GFLOP[1],
+              f"[bench] {label}: FLOPs {line}")
+        launches = {name: int(n) for name, n in re.findall(r"(warp_\w+) (\d+)", line)}
+        sampler = args[args.index("--sampler") + 1] if "--sampler" in args else "kernel"
+        calls = BENCH_DEPTH + 2 + ("--breakdown" in args) * (1 + BREAKDOWN_REPS)
+        want = {kernel.__name__: calls * (kernel.__name__ == BENCH_KERNEL[sampler]) for kernel in WARP_KERNELS}
+        check(launches == want, f"[bench] {label}: warp launches {launches}, expected {want} ({calls} calls)")
+        check("% of" in line if "H100" in card else True, f"[bench] {label}: no share of the peak: {line}")
+        for name, n in launches.items():
+            if n:
+                by_run[name][f"bench {label}"] = n
+        beside = (f"; phase 4's bf16 track_sequences_batched on smooth-noise sequences: {bf16_ms['bf16']:.1f} "
+                  f"ms a call (host clock around one synchronised call, median of {TRACK_CALLS})"
+                  if label.startswith("(a)") else "")
+        log(f"{line} -- {label}: {result['value']} frames/s, the run {wall_s:.1f} s with start-up{beside}")
+        log(f"[bench] {label} stdout: {lines[-1]}")
+    return by_run
+
+
 # ---- the tensor-parallel model axis ----------------------------------------
 
 
@@ -2360,14 +2517,17 @@ def tp_small_batches():
     return frame.to("cuda"), window.to("cuda")
 
 
-def tp_steps(mesh, noise=None):
+def tp_steps(mesh, noise=None, configs=("full", "small"), cudnn=True, profile=False):
     """One ``train_step`` and one ``temporal_train_step`` at the full width
-    of ``ModelConfig()`` on TP_B rows and at TP_SMALL on
-    :func:`tp_small_batches`, each on this data index's block, TF32 off:
-    {(config, label): (metrics, gradients gathered whole, running stats,
-    replicated parameters after the step, global norm, ms of a second
+    of ``ModelConfig()`` on TP_B rows (``"full"``) and at TP_SMALL on
+    :func:`tp_small_batches` (``"small"``), each on this data index's block,
+    TF32 off: {(config, label): (metrics, gradients gathered whole, running
+    stats, replicated parameters after the step, global norm, ms of a second
     step)}.  ``noise`` seeds a relative nudge of the images by 1e-7 (below
-    f32 rounding): how far rounding alone moves the results."""
+    f32 rounding): how far rounding alone moves the results.  ``cudnn=False``
+    runs every convolution with PyTorch's own kernels instead of cuDNN's;
+    ``profile`` adds the names of the device kernels of a third full-width
+    ``train_step`` (torch.profiler)."""
     import dataclasses
 
     import torch
@@ -2377,9 +2537,11 @@ def tp_steps(mesh, noise=None):
     from umetrack_torch.parallel.mesh import shard_batch, shard_variables
 
     out = {}
-    for config_label, config, batches in (("full", ModelConfig(), small_train_batches("cuda", TP_B)),
-                                          ("small", ModelConfig(**TP_SMALL), tp_small_batches())):
-        frame, window = batches
+    for config_label, config, make_batches in (("full", ModelConfig(), lambda: small_train_batches("cuda", TP_B)),
+                                               ("small", ModelConfig(**TP_SMALL), tp_small_batches)):
+        if config_label not in configs:
+            continue
+        frame, window = make_batches()
         if noise is not None:
             gen = torch.Generator(device="cuda").manual_seed(noise)
 
@@ -2397,7 +2559,7 @@ def tp_steps(mesh, noise=None):
                 batch = shard_batch(batch, mesh)
             opt = ClippedAdamW(model.parameters(), 1e-3, 1e-5, mesh=mesh)
             state = create_train_state(model, opt)
-            with tf32_off():
+            with tf32_off(), cudnn_enabled(cudnn):
                 metrics = step_fn(state, batch)
                 grads, replicated = {}, {}  # copies: the timed second step below moves the originals
                 for name, p in model.named_parameters():
@@ -2411,6 +2573,9 @@ def tp_steps(mesh, noise=None):
                     metrics={k: float(v) for k, v in metrics.items()}, grads=grads, stats=stats,
                     replicated=replicated, norm=float(opt.global_norm),
                     ms=wall_ms(lambda: step_fn(state, batch))[0])
+                if profile and (config_label, label) == ("full", "train_step"):
+                    out[config_label, label]["kernels"] = {
+                        name for _, _, name in profile_call(lambda: step_fn(state, batch))["rows"]}
     return out
 
 
@@ -2466,28 +2631,101 @@ def tp_app(mesh, out_dir):
     return result
 
 
-def tp_worker(rank, world, port, out_dir):
+def tp_crops():
+    """The checkpoint's same-crops inputs, prepared once here with no
+    group: the crop sets and crop images of the ``[tp]`` sequences
+    (``_prepare_sequences_merged``, leaves ``[T, 2S, ...]``), their skeleton
+    rows and hand indices, on the CPU for the workers.  Returns (those
+    crops, the sequences, their hand models)."""
+    import torch
+    from umetrack_torch.tracker import TrackerConfig
+    from umetrack_torch.tracker import tracker as T
+    from umetrack_torch.utils.synthetic import make_sequences
+
+    rigs, seqs, hands = make_sequences(TP_S, TP_T, seed=TP_SEED, device="cuda")
+    with torch.inference_mode():
+        crop_sets, crop_images = T._prepare_sequences_merged(TrackerConfig(), rigs, seqs, hands, 1, "kernel")
+    cpu = lambda a: a.to("cpu", copy=True)  # noqa: E731
+    crops = dict(crop_sets=crop_sets.map(cpu), crop_images=cpu(crop_images),
+                 skeleton=T._skeleton_inputs(hands, repeat=2).map(cpu), hand_idx=torch.arange(2).repeat(TP_S))
+    return crops, seqs, hands
+
+
+def tp_scan(model, crops, rows=slice(None)):
+    """``_model_scan`` of ``model`` on the hand rows ``rows`` of the crops
+    :func:`tp_crops` saved, from a zero state, TF32 off: (angles, wrists
+    mm, valid), leaves ``[T, rows, ...]`` on the CPU."""
+    import torch
+    from umetrack_torch.tracker import TrackerConfig
+    from umetrack_torch.tracker import tracker as T
+    from umetrack_torch.tracker.types import TrackState
+
+    crop_sets = crops["crop_sets"].map(lambda a: a[:, rows].cuda())
+    images = crops["crop_images"][:, rows].cuda()
+    skeleton = crops["skeleton"].map(lambda a: a[rows].cuda())
+    state = TrackState.init(model.config, images.shape[1], device="cuda")
+    with tf32_off(), torch.inference_mode():
+        res, _ = T._model_scan(model, TrackerConfig(), crop_sets, images, state, skeleton,
+                               crops["hand_idx"][rows].cuda())
+    return [res.joint_angles.cpu(), res.wrist_xfs.cpu(), res.valid.cpu()]
+
+
+def scan_sequence_errors(scan, first, seqs, hands):
+    """Per-sequence mean landmark errors (mm, as ``eval_sequences_batched``
+    computes them) and tracked landmarks of a :func:`tp_scan` result whose
+    rows start at sequence ``first``."""
+    import types
+
+    import torch
+    from umetrack_torch.tracker import sequence_landmarks
+
+    angles, wrists, valid = scan
+    errors, landmarks = [], []
+    for j in range(angles.shape[1] // 2):
+        i, rows = first + j, slice(2 * j, 2 * j + 2)
+        hand, seq = hands.map(lambda a: a[i]), seqs.map(lambda a: a[i])
+        res = types.SimpleNamespace(joint_angles=angles[:, rows].cuda(), wrist_xfs=wrists[:, rows].cuda(),
+                                    valid=valid[:, rows].cuda())
+        errors.append(sequence_error_mm(hand, hand, res, seq))
+        landmarks.append(sequence_landmarks(hand, res.joint_angles, res.wrist_xfs).cpu())
+    return torch.tensor(errors, dtype=torch.float64), torch.stack(landmarks)
+
+
+def tp_worker(rank, world, port, out_dir, model_axis=TP_MODEL, crops_path=""):
     """One rank of a ``[tp]`` group: ``world`` processes on card 0 joined
-    over gloo (CUDA tensors), a (world / 2, 2) mesh; runs ``tp_eval`` with
-    seeded weights and the checkpoint, ``tp_steps``, ``tp_app`` (and in a
-    world of 2, ``model_axis`` 0) and writes its results to
+    over gloo (CUDA tensors), a (world / model_axis, model_axis) mesh.  With
+    the model axis: runs ``tp_eval`` with seeded weights and the checkpoint,
+    the checkpoint's ``_model_scan`` on its data block of the crops at
+    ``crops_path`` (:func:`tp_scan`), ``tp_steps``, ``tp_app`` (and in a
+    world of 2, the full-width steps again with cuDNN off, and
+    ``model_axis`` 0).  With ``model_axis`` 1 (data only): the
+    full-width ``tp_steps`` alone, in a world of 1 also with the images
+    nudged, and both again with cuDNN off.  Writes its results to
     ``out_dir/rank{rank}.pt``."""
     import torch
     import torch.distributed as dist
     from umetrack_torch.kinematics.hand import from_dict, load_generic_hand_dict
     from umetrack_torch.models import ModelConfig, make_model
     from umetrack_torch.parallel import distributed
-    from umetrack_torch.parallel.mesh import make_mesh, shard_variables
+    from umetrack_torch.parallel.mesh import block, make_mesh, shard_variables
     from umetrack_torch.utils.checkpoints import load_checkpoint
     from umetrack_torch.utils.synthetic import make_sequences
 
-    rank, world, port = int(rank), int(world), int(port)
+    rank, world, port, model_axis = int(rank), int(world), int(port), int(model_axis)
     torch.cuda.set_device(0)
     distributed.initialize(f"localhost:{port}", world, rank, backend="gloo", device="cuda")
     try:
         check(dist.get_backend() == "gloo", f"backend {dist.get_backend()}")
-        mesh = make_mesh(model_axis=TP_MODEL)
+        mesh = make_mesh(model_axis=model_axis)
         res = {"mesh": (mesh.shape, mesh.data_index, mesh.model_index)}
+        if model_axis == 1:
+            res["steps"] = tp_steps(mesh, configs=("full",), profile=world == 1)
+            if world == 1:
+                res["nudged"] = tp_steps(mesh, noise=1, configs=("full",))
+                res["steps_cudnn_off"] = tp_steps(mesh, configs=("full",), cudnn=False)
+                res["nudged_cudnn_off"] = tp_steps(mesh, noise=1, configs=("full",), cudnn=False)
+            torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+            return 0
         if world == 2:
             res["auto"] = make_mesh(model_axis=0).shape
         rigs, seqs, hands = make_sequences(TP_S, TP_T, seed=TP_SEED, device="cuda")
@@ -2508,8 +2746,14 @@ def tp_worker(rank, world, port, out_dir):
                 call = lambda: eval_sequences_batched(model, TrackerConfig(), *parts)  # noqa: E731
                 res["eval_ms"] = median_ms(call, 3, warmup=1)
                 res["eval_profile"] = {k: v for k, v in profile_call(call).items() if k != "rows"}
+            else:  # the same crops for every rank: this data index's rows
+                rows = block(2 * TP_S, mesh)
+                res["same_crops"] = (rows.start // 2, tp_scan(model, torch.load(crops_path, weights_only=False),
+                                                              rows))
             del model
-        res["steps"] = tp_steps(mesh)
+        res["steps"] = tp_steps(mesh, profile=world == 2)
+        if world == 2:
+            res["steps_cudnn_off"] = tp_steps(mesh, configs=("full",), cudnn=False)
         res["app"] = tp_app(mesh, out_dir)
     finally:
         distributed.finalize()
@@ -2535,59 +2779,143 @@ def tp_references(ckpt_cuda):
     seeded = make_model(ModelConfig(), seed=0, device="cuda")
     call = lambda: eval_sequences_batched(  # noqa: E731
         seeded, TrackerConfig(), rigs, seqs, make_batched_state(seeded, TP_S), hands)
-    return dict(eval=evals, steps=tp_steps(None), nudged=tp_steps(None, noise=1),
-                eval_ms=median_ms(call, 3, warmup=1),
+    return dict(eval=evals, steps=tp_steps(None), eval_ms=median_ms(call, 3, warmup=1),
                 eval_profile=profile_call(call))
 
 
-def run_tp_group(world):
-    """``world`` worker processes of this script on card 0 (``--tp-worker``),
-    each given TP_TIMEOUT_S; any failure or time-out stops them all and
-    fails the phase.  Returns the ranks' results and the wall seconds."""
+def run_tp_group(world, model_axis=TP_MODEL, crops=None):
+    """``world`` worker processes of this script on card 0 (``--tp-worker``)
+    in a temporary folder, each given TP_TIMEOUT_S, with ``crops`` (from
+    :func:`tp_crops`) saved there for them; any failure or time-out stops
+    them all and fails the phase.  Returns the ranks' results and the wall
+    seconds."""
     import socket
 
     import torch
 
-    out = tempfile.mkdtemp(prefix=f"umetrack_tp{world}_")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    logs = [open(os.path.join(out, f"rank{r}.log"), "w+") for r in range(world)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r), str(world),
-                               str(port), out], cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(world)]
-    try:
-        deadline = time.monotonic() + TP_TIMEOUT_S
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall_s = time.perf_counter() - t0
-    for r, (p, fp) in enumerate(zip(procs, logs)):
-        fp.seek(0)
-        tail = fp.read()[-3000:]
-        fp.close()
-        check(p.returncode == 0, f"[tp] world {world}: rank {r} exited {p.returncode}:\n{tail}")
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(world)], wall_s
+    with tempfile.TemporaryDirectory(prefix=f"umetrack_tp{world}_") as out:
+        crops_path = ""
+        if crops is not None:
+            crops_path = os.path.join(out, "crops.pt")
+            torch.save(crops, crops_path)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        logs = [open(os.path.join(out, f"rank{r}.log"), "w+") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r), str(world),
+                                   str(port), out, str(model_axis), crops_path], cwd=HERE, stdout=logs[r],
+                                  stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        try:
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        for r, (p, fp) in enumerate(zip(procs, logs)):
+            fp.seek(0)
+            tail = fp.read()[-3000:]
+            fp.close()
+            check(p.returncode == 0, f"[tp] world {world}: rank {r} exited {p.returncode}:\n{tail}")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(world)], wall_s
+
+
+def relative_l2(got, want):
+    return float((got - want).norm() / want.norm())
 
 
 def phase_tp(ckpt_cuda, card):
     """``[tp]``: the tensor-parallel model axis on the card.  Groups of 2
     (data 1 x model 2) and 4 (data 2 x model 2) processes share card 0 over
     gloo; each rank runs the batched eval at S x T = TP_S x TP_T (seeded
-    weights and the checkpoint), the two train steps at TP_B rows and the
-    train app with ``{"mesh": {"model_axis": 2}}``; all held against the
-    same calls here with no group.  Returns the launches by path."""
+    weights and the checkpoint), the checkpoint's ``_model_scan`` on its
+    rows of crops prepared once here (the same crops), the two train steps
+    at TP_B rows and the train app with ``{"mesh": {"model_axis": 2}}``; all
+    held against the same calls here with no group, except the full-width
+    gradients: those are held leaf by leaf against the same steps in a
+    group of one (the same BatchNorm), at TP_FLOOR_FACTOR x the floors that
+    TP_GATES names, each measured against that step with the same cuDNN
+    setting: what a nudge of the images moves in the group of one, and what
+    a data-only group of 2 (data 2 x model 1) moves.  Returns the launches
+    by path."""
     refs = tp_references(ckpt_cuda)
+    crops, crop_seqs, crop_hands = tp_crops()
+    same_ref = tp_scan(ckpt_cuda, crops)
+    ref_errors, ref_landmarks = scan_sequence_errors(same_ref, 0, crop_seqs, crop_hands)
+
+    # the reference of the full-width gradients and their floors, leaf by
+    # leaf: the steps in a group of one, with the images nudged by 1e-7 there,
+    # and with the rows split over two data ranks with no model axis
+    (one,), one_s = run_tp_group(1, model_axis=1)
+    data_only, data_only_s = run_tp_group(2, model_axis=1)
+    check(one["mesh"] == ({"data": 1, "model": 1}, 0, 0), f"[tp] group of one: mesh {one['mesh']}")
+    for r, res in enumerate(data_only):
+        check(res["mesh"] == ({"data": 2, "model": 1}, r, 0), f"[tp] data-only rank {r}: mesh {res['mesh']}")
+
+    def gaps_from(runs, key, want):  # leaf -> relative L2 gap (the worst over ``runs``), and the norm's
+        out = {k: max(relative_l2(run[key]["grads"][k], g) for run in runs)
+               for k, g in want["grads"].items() if k not in ZERO_GRAD_LEAVES}
+        out["norm"] = max(abs(run[key]["norm"] - want["norm"]) for run in runs) / want["norm"]
+        return out
+
+    def worst(gaps):
+        return f"{max(v for k, v in gaps.items() if k != 'norm'):.3e} / {gaps['norm']:.3e}"
+
+    full_keys = [key for key in refs["steps"] if key[0] == "full"]
+    reference = {True: one["steps"], False: one["steps_cudnn_off"]}  # by cuDNN on
+    floors = {(name, cudnn): {key: gaps_from(runs, key, reference[cudnn][key]) for key in full_keys}
+              for name, cudnn, runs in (("images nudged", True, [one["nudged"]]),
+                                        ("images nudged", False, [one["nudged_cudnn_off"]]),
+                                        ("another order", False, [one["steps"]]),
+                                        ("data split", True, [res["steps"] for res in data_only]))}
+    log(f"[tp] the full-width gradients' reference: the same steps in a group of one (data 1 x model 1, "
+        f"{one_s:.1f} s with start-up), TF32 off; against no group (the two-pass variance in BatchNorm "
+        f"against the group's one-pass one; worst gradient leaf / global norm): " + "; ".join(
+            f"{key[1]} {worst(gaps_from([one['steps']], key, refs['steps'][key]))}" for key in full_keys)
+        + "; the floors against the group of one with the same cuDNN setting (the data split from a data-only "
+        f"group of 2, data 2 x model 1, {data_only_s:.1f} s with start-up): " + "; ".join(
+            f"{key[1]}: " + ", ".join(f"{name} (cuDNN {'on' if cudnn else 'off'}) {worst(floor[key])}"
+                                      for (name, cudnn), floor in floors.items()) for key in full_keys)
+        + f" [{card}]")
+
     by_path = {}
+
+    def gate_full(world, r, label, key, steps, cudnn):
+        """One rank's full-width gradients against the group of one with the
+        same cuDNN setting: every leaf and the norm within TP_FLOOR_FACTOR x
+        the larger of the floors TP_GATES names for this split, else the
+        phase fails; printed only where TP_GATES names none."""
+        names = TP_GATES[world, cudnn]
+        leaf_gaps = gaps_from([steps], key, reference[cudnn][key])
+        ratios = {k: v / max(max(floors[n, cudnn][key][k] for n in names or ("images nudged",)), 1e-30)
+                  for k, v in leaf_gaps.items()}
+        over = dict(sorted(((k, v) for k, v in ratios.items() if v > TP_FLOOR_FACTOR), key=lambda kv: -kv[1]))
+        check(names is None or not over,
+              f"[tp] world {world} rank {r} full {label}, cuDNN {'on' if cudnn else 'off'}: {len(over)} of "
+              f"{len(ratios)} gradient leaves and norm past {TP_FLOOR_FACTOR} x their floor "
+              f"({' and '.join(names or ())}), the worst {dict(list(over.items())[:5])}")
+        top = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+        nudge = floors["images nudged", cudnn][key]
+        alone = sorted((k for k, v in leaf_gaps.items() if v > TP_FLOOR_FACTOR * nudge[k]),
+                       key=lambda k: -leaf_gaps[k] / nudge[k])
+        bound = (f"<= {TP_FLOOR_FACTOR} x the larger of {' and '.join(names)}" if names else
+                 f"NOT GATED (TP_GATES), {len(over)} of {len(ratios)} past {TP_FLOOR_FACTOR} x images nudged")
+        if names and len(names) > 1:
+            bound += (f"; past {TP_FLOOR_FACTOR} x images nudged alone: {len(alone)} "
+                      f"({', '.join(f'{k} {leaf_gaps[k] / nudge[k]:.2f}' for k in alone[:8])})")
+        return (f"cuDNN {'on' if cudnn else 'off'}: gradient leaves and the global norm within "
+                f"{max(ratios.values()):.2f} x their floor ({bound}), the highest "
+                f"{', '.join(f'{k} {v:.2f}' for k, v in top)}, the worst leaf / norm {worst(leaf_gaps)}")
+
     for world in TP_WORLDS:
-        ranks, wall_s = run_tp_group(world)
+        ranks, wall_s = run_tp_group(world, crops=crops)
         data = world // TP_MODEL
         for r, res in enumerate(ranks):
             check(res["mesh"] == ({"data": data, "model": TP_MODEL}, r // TP_MODEL, r % TP_MODEL),
@@ -2597,8 +2925,9 @@ def phase_tp(ckpt_cuda, card):
             check(all(res["auto"] == {"data": 1, "model": 2} for res in ranks), "model_axis 0: not model 2")
         gaps = {}
         for label, (known, unknown, _) in refs["eval"].items():
-            # the checkpoint on a data split: each rank batches half the sequences, and trained
-            # weights amplify the crop fit's f32 rounding between differently batched calls (TRAINED)
+            # the checkpoint on a data split: each rank fits the crops of half the sequences, and
+            # trained weights amplify the crop fit's f32 rounding between differently batched calls
+            # (TRAINED); on the same crops it is held to the strict bounds below
             mm, rtol = (TRAINED.mm, 0.0) if label == "checkpoint" and data > 1 else (TP_EVAL_MM, TP_EVAL_RTOL)
             gap = [0.0, 0.0, 0.0, mm, rtol]  # known mm, unknown mm, scale, the bounds
             for res in ranks:
@@ -2615,11 +2944,24 @@ def phase_tp(ckpt_cuda, card):
                 check(d_scale <= SCALE_TOL, f"[tp] world {world} {label}: scales differ by {d_scale}")
                 gap[2] = max(gap[2], d_scale)
             gaps[label] = gap
+        # the checkpoint's scan on the SAME crops: each rank its data block's rows
+        same_err = same_lm = 0.0
+        for r, res in enumerate(ranks):
+            first, scan = res["same_crops"]
+            errors, landmarks = scan_sequence_errors(scan, first, crop_seqs, crop_hands)
+            want = ref_errors[first:first + len(errors)]
+            rows = slice(2 * first, 2 * first + scan[0].shape[1])
+            check(bool((scan[2] == same_ref[2][:, rows]).all()), f"[tp] world {world} same crops: valid differs")
+            d = (errors - want).abs()
+            same_err = max(same_err, float(d.max()))
+            same_lm = max(same_lm, float((landmarks - ref_landmarks[first:first + len(errors)]).abs().max()))
+            check(bool((d <= TP_EVAL_MM + TP_EVAL_RTOL * want.abs()).all()),
+                  f"[tp] world {world} rank {r} checkpoint on the same crops: per-sequence error {errors} "
+                  f"against {want}")
         pool = sum(sum(res["eval"][label][2]) for res in ranks for label in refs["eval"])
         by_path[f"tp world {world} batched eval"] = pool
         step_text = []
         for (config_label, label), want in refs["steps"].items():
-            nudged = refs["nudged"][config_label, label]
             for r, res in enumerate(ranks):
                 got = res["steps"][config_label, label]
                 check(all(abs(got["metrics"][k] - want["metrics"][k]) <= LOSS_RTOL * abs(want["metrics"][k]) + 1e-7
@@ -2638,14 +2980,11 @@ def phase_tp(ckpt_cuda, card):
                     gap = (f"gradient leaves within {ordinary:.3e} relative L2 (<= {GRAD_REL_L2}), the first layers "
                            f"{first:.3e} (<= {FIRST_LAYERS_REL_L2}), zero-gradient biases {noise:.3e} "
                            f"(<= {ZERO_GRAD_NOISE}), global norm {d_norm:.3e} (<= {TP_NORM_RTOL})")
-                else:  # ill-conditioned: printed beside what a nudge of the images moves with no group
-                    worst = max(float((got["grads"][k] - g).norm() / g.norm())
-                                for k, g in want["grads"].items() if k not in ZERO_GRAD_LEAVES)
-                    moved = max(float((nudged["grads"][k] - g).norm() / g.norm())
-                                for k, g in want["grads"].items() if k not in ZERO_GRAD_LEAVES)
-                    gap = (f"the worst gradient leaf {worst:.3e} relative L2 and the global norm {d_norm:.3e} "
-                           f"(not gated: images nudged by 1e-7 move them by {moved:.3e} and "
-                           f"{abs(nudged['norm'] - want['norm']) / want['norm']:.3e} with no group)")
+                    continue
+                # ill-conditioned at full width: each leaf and the norm against the group of one,
+                # at TP_FLOOR_FACTOR x the larger of the floors TP_GATES names for this split
+                gap = "; ".join(gate_full(world, r, label, (config_label, label), res[steps], cudnn)
+                                for steps, cudnn in (("steps", True), ("steps_cudnn_off", False)) if steps in res)
             step_text.append(
                 f"{config_label} {label}: metrics and running stats ({d_stats:.3e}) within phase 9's bounds, {gap}, "
                 f"{max(res['steps'][config_label, label]['ms'] for res in ranks):.1f} ms a step (no group: "
@@ -2666,9 +3005,19 @@ def phase_tp(ckpt_cuda, card):
                 f"{dk:.3e} mm of the call with no group, eval_sequences_unknown_batched {du:.3e} mm, scales "
                 f"{ds:.3e} (bounds {rtol} relative + {mm} mm, scale {SCALE_TOL}); warp_pool 1 + 2 launches on "
                 f"each rank")
+        log(f"[tp] world {world} checkpoint on the SAME crops (prepared once with no group; each rank's "
+            f"_model_scan on its data block's rows), TF32 off: per-sequence error within {same_err:.3e} mm of "
+            f"the scan with no group (bounds {TP_EVAL_RTOL} relative + {TP_EVAL_MM} mm), landmarks within "
+            f"{same_lm:.3e} mm")
         log(f"[tp] world {world}, TF32 off, against no group (full: ModelConfig() on B={TP_B} rows; small: "
             f"TP_SMALL on tests/test_torch_tp.py's B={TP_SMALL_B} rows): " + "; ".join(step_text)
             + "; replicated parameters equal bit for bit across the model ranks")
+        if world == 2:  # what TP_GATES leaves ungated: the kernels of one full-width train_step
+            mine = ranks[0]["steps"]["full", "train_step"]["kernels"]
+            base = one["steps"]["full", "train_step"]["kernels"]
+            log(f"[tp] world 2 rank 0 full train_step, TF32 off, cuDNN on (torch.profiler): {len(mine)} device "
+                f"kernels, the group of one {len(base)}; only in world 2: {sorted(k[:110] for k in mine - base)}; "
+                f"only in the group of one: {sorted(k[:110] for k in base - mine)}")
         log(f"[tp] world {world} train app main {{\"mesh\": {{\"model_axis\": 2}}}} --synthetic --steps "
             f"{TP_APP_STEPS} --batch-size {TP_APP_BATCH} --window {TP_APP_WINDOW}: "
             f"{max(res['app']['ms'] for res in ranks) / 1e3:.1f} s with start-up, loss {app_res['hist']}, "
@@ -3021,7 +3370,8 @@ def phase_bf16_tracker(wp_mod, model32, model16, tally, rigs, seqs, hands, card)
     (median of 3, the three variants in turns), frames/s, peak memory, one
     call of each under the profiler with its device time split by kind of
     kernel; bf16 against f32 (TF32 off) at ``tests/test_bf16.py``'s bounds;
-    then ``eval_sequences_batched`` in bf16 (one launch a call)."""
+    then ``eval_sequences_batched`` in bf16 (one launch a call).  Returns
+    the median ms a call of each variant."""
     import contextlib
 
     import torch
@@ -3075,8 +3425,9 @@ def phase_bf16_tracker(wp_mod, model32, model16, tally, rigs, seqs, hands, card)
     check(state16.temporal.mem_features.dtype == torch.bfloat16, "bf16: the carry is not bf16")
     check(bool(torch.isfinite(res16.joint_angles).all() & torch.isfinite(res16.wrist_xfs).all()
                & torch.isfinite(state16.temporal.mem_features.float()).all()), "bf16: non-finite output")
+    medians = {}
     for label in times:
-        ms = sorted(times[label])[len(times[label]) // 2]
+        ms = medians[label] = sorted(times[label])[len(times[label]) // 2]
         log(f"[bf16] track_sequences_batched S={s} T={t} full ModelConfig() {label}: {ms:.1f} ms/call "
             f"median of {TRACK_CALLS} ({', '.join(f'{m:.1f}' for m in times[label])}; in turns with the "
             f"other two), {s * t / ms * 1e3:.1f} frames/s, peak mem {peaks[label]:.2f} GiB [{card}]")
@@ -3111,6 +3462,7 @@ def phase_bf16_tracker(wp_mod, model32, model16, tally, rigs, seqs, hands, card)
     log(f"[bf16] eval_sequences_batched S={s} T={t} bf16: one warp_pool launch a call, global mean "
         f"{float(mean):.2f} mm, {ms[1]:.1f} ms/call median of 3 ({', '.join(f'{m:.1f}' for m in ms)}), "
         f"{s * t / ms[1] * 1e3:.1f} frames/s [{card}]")
+    return medians
 
 
 def phase_bf16_streaming(wp_mod, models, tally, card):
@@ -3445,7 +3797,7 @@ def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
         "shapes": list(shapes),
         "ms": numbers["ms"], "kernel_ms": numbers["kernel_ms"], "plain_ms": numbers["plain_ms"],
         "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "nearest_library": NEAREST_LIBRARY, "nearest_library_ms": numbers["grid_sample_ms"],
     }
 
 
@@ -3484,10 +3836,15 @@ def main():
     # before each of their entry-point calls and reads it just after
     model16 = make_model(ModelConfig(compute_dtype=BF16), seed=0, device="cuda")
     bf16_tally = LaunchTally(wp_mod.warp_pool)
-    phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
+    bf16_ms = phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
     bf16_tracker_launches = bf16_tally.total
     del rigs, seqs, hands
     torch.cuda.empty_cache()
+
+    # the tracker bench: python -m umetrack_torch.bench in subprocesses
+    t_bench = time.perf_counter()
+    bench_launches = phase_bench(bf16_ms, card)
+    log(f"[bench] the phase took {time.perf_counter() - t_bench:.1f} s")
 
     win_launches, full_launches, win_bf16 = phase_torchdata_slice(wp_mod, wi_mod, model_cuda, card)
 
@@ -3567,19 +3924,21 @@ def main():
                       "bf16 tracker and batched eval": bf16_tracker_launches,
                       "bf16 raw_data eval": eval16_tally.total,
                       **{path: n for path, n in tp_launches.items() if "eval" in path},
-                      **{f"accuracy: {label}": got[0] for label, got in acc.items() if got[0]}},
+                      **{f"accuracy: {label}": got[0] for label, got in acc.items() if got[0]},
+                      **bench_launches["warp_pool"]},
                      pool_kern, eval_shapes + [train_rows["warp_pool"]]),
         kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:174",
                      {"torch_data": win_launches, "train app 480 x 640 tree": tree_launches,
-                      "bf16 torch_data": win_bf16},
+                      "bf16 torch_data": win_bf16, **bench_launches["warp_image_windowed"]},
                      image_kern["warp_image_windowed"], [train_rows["warp_image_windowed"]]),
         kernel_entry("warp_image_full", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:68",
                      {"torch_data 120 x 160": full_launches, "train app synthetic": syn_launches,
                       "distill": distill_full, "bf16 train app synthetic": syn_bf16,
                       **{path: n for path, n in tp_launches.items() if "train app" in path},
-                      **{f"accuracy: {label}": got[1] for label, got in acc.items() if got[1]}},
+                      **{f"accuracy: {label}": got[1] for label, got in acc.items() if got[1]},
+                      **bench_launches["warp_image_full"]},
                      image_kern["warp_image_full"], [train_rows["warp_image_full"], acc_full_row]),
     ]}))
     log(json.dumps({"ok": True, "device": {
@@ -3592,5 +3951,5 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
-        sys.exit(tp_worker(*sys.argv[2:6]))
+        sys.exit(tp_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``umetrack_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, msgpack (the port has its own codec),
 orbax, tensorstore or zstandard (it has its own zstd decoder and OCDBT
-store), the JAX package or the repository's ``scripts`` (the port's
-drivers are ``umetrack_torch/scripts/``); OpenCV is imported only inside the mp4 decoder and the
+store), the JAX package, the repository's ``scripts`` (the port's
+drivers are ``umetrack_torch/scripts/``), its ``bench.py`` (the port's is
+``umetrack_torch/bench.py``) or the tests' helpers; OpenCV is imported only inside the mp4 decoder and the
 stroke renderer, which nothing on the GPU's path calls; and the kernel
 wrappers take the plain version for CPU tensors."""
 import ast
@@ -20,7 +21,9 @@ warp_pool_module = importlib.import_module("umetrack_torch.ops.warp_pool")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "msgpack", "umetrack_tpu",
-             "zstandard", "tensorstore", "scripts")
+             "zstandard", "tensorstore", "scripts",
+             # the JAX bench (bench.py) and the tests' own helpers
+             "bench", "tests", "synthetic", "conftest", "torch_threads")
 # the only functions that may import cv2, by file
 CV2_FUNCTIONS = {
     os.path.join("umetrack_torch", "tracker", "video.py"): {"stream_video_strip"},
@@ -36,6 +39,7 @@ NEW_MODULES = (
     "data/native.py",
     "utils/_zstd.py", "utils/ocdbt.py", "utils/orbax.py",
     "scripts/resident_train.py", "scripts/diagnose_ckpt.py", "scripts/accuracy_loop.py",
+    "bench.py",
 )
 
 
@@ -105,7 +109,7 @@ import importlib
 for name in ("tracker.video", "utils.synthetic", "utils.render", "apps.sequence_eval",
              "apps.run_eval_known_skeleton", "apps.run_eval_unknown_skeleton", "apps.load_eval",
              "config", "parallel.resident", "apps.train", "apps.distill",
-             "scripts.resident_train", "scripts.diagnose_ckpt", "scripts.accuracy_loop"):
+             "scripts.resident_train", "scripts.diagnose_ckpt", "scripts.accuracy_loop", "bench"):
     importlib.import_module("umetrack_torch." + name)
 from umetrack_torch.utils import synthetic
 labels, images = synthetic.make_labels_dict(1, rng_seed=0, render=False, device="cpu")

@@ -4,7 +4,10 @@ name, each against the JAX package's on the CPU: the hand constants and
 ``convert_state_dict`` / ``load_torch_checkpoint``, the native reader's
 ``available`` / ``open_idxbin``, ``fetch_barrier``, the eval apps'
 ``DEFAULT_GENERIC_HAND`` and ``load_model``, and the apps' ``SAMPLERS``."""
+import json
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -191,3 +194,42 @@ def test_load_model_matches_jax():
     _, jvars = jknown.load_model(R5_CHECKPOINT)
     want = from_flax_variables(jax.tree_util.tree_map(np.asarray, jvars), ModelConfig())
     _assert_state_equal({k: v for k, v in model.state_dict().items() if k in want}, want)
+
+
+GENERIC_HAND_CHECK = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import numpy as np
+from umetrack_tpu.utils import synthetic as jsynthetic
+from umetrack_torch.kinematics import hand
+from umetrack_torch.utils import synthetic
+path = sys.argv[1]
+assert synthetic.GENERIC_HAND_JSON == hand.GENERIC_HAND_JSON == jsynthetic.GENERIC_HAND_JSON == path
+loaded = [hand.load_generic_hand_dict(), synthetic.load_generic_hand_dict(), jsynthetic.load_generic_hand_dict()]
+assert loaded[0] == loaded[1] == loaded[2] == json.load(open(path))
+labels, _ = synthetic.make_labels_dict(4, rng_seed=0, render=False, device="cpu")
+jlabels, _ = jsynthetic.make_labels_dict(4, rng_seed=0, render=False)
+for key, want in jlabels["hand_model"].items():
+    np.testing.assert_array_equal(np.asarray(labels["hand_model"][key]), np.asarray(want), err_msg=key)
+np.testing.assert_array_equal(np.asarray(labels["hand_model"]["joint_rest_positions"]),
+                              np.asarray(loaded[0]["joint_rest_positions"]))
+print("same hand")
+"""
+
+
+def test_generic_hand_json_variable_is_read_like_the_jax_package(tmp_path):
+    """``UMETRACK_GENERIC_HAND_JSON`` names the generic hand for both
+    packages (``utils/synthetic.py``): with it set to a scaled copy of the
+    vendored hand, both load that copy and both generate its labels; the
+    unknown-skeleton app's default stays the vendored file."""
+    from umetrack_torch.utils.synthetic import scaled_hand_dict
+
+    path = tmp_path / "scaled_hand.json"
+    path.write_text(json.dumps(scaled_hand_dict(hand.load_generic_hand_dict(hand.VENDORED_HAND_JSON), 1.2)))
+    env = dict(os.environ, UMETRACK_GENERIC_HAND_JSON=str(path), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+    done = subprocess.run([sys.executable, "-c", GENERIC_HAND_CHECK, str(path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0 and "same hand" in done.stdout, done.stderr[-3000:]
+    assert run_eval_unknown_skeleton.DEFAULT_GENERIC_HAND == hand.VENDORED_HAND_JSON
+    assert os.path.samefile(hand.VENDORED_HAND_JSON, os.path.join(REPO, "assets", "generic_hand_model.json"))

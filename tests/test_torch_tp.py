@@ -9,10 +9,12 @@ JAX's ``reshape``.  Then one spawn of four gloo processes on the CPU, a
 (data 2, model 2) mesh (this file run as ``--worker``, with a timeout):
 ``train_step`` and ``temporal_train_step`` with the clip engaged, both
 batched eval protocols, and the train app's ``main`` with ``{"mesh":
-{"model_axis": 2}}`` for 2 steps, which writes a checkpoint.  Their results
-are held against the JAX package on a (2, 2) mesh of its virtual CPU
-devices, against the port in one process with no group, and across the
-ranks (the replicated parameters equal bit for bit over the model ranks)."""
+{"model_axis": 2}}`` for 2 steps, which writes a checkpoint, and
+``_model_scan`` on each rank's rows of crops prepared once with no group.
+Their results are held against the JAX package on a (2, 2) mesh of its
+virtual CPU devices, against the port in one process with no group, and
+across the ranks (the replicated parameters equal bit for bit over the
+model ranks)."""
 import dataclasses
 import os
 import socket
@@ -32,7 +34,7 @@ from umetrack_torch.models import FrameInputs, ModelConfig, TemporalState, UmeTr
 from umetrack_torch.models.convert import from_flax_variables, to_flax_variables  # noqa: E402
 from umetrack_torch.parallel import distributed, eval as peval  # noqa: E402
 from umetrack_torch.parallel.mesh import (  # noqa: E402
-    Mesh, full_state_dict, make_mesh, mesh_shape, param_sharding, shard_batch, shard_variables)
+    Mesh, block, full_state_dict, make_mesh, mesh_shape, param_sharding, shard_batch, shard_variables)
 from umetrack_torch.parallel.optim import ClippedAdamW  # noqa: E402
 from umetrack_torch.parallel.train import (  # noqa: E402
     TemporalTrainBatch,
@@ -42,8 +44,9 @@ from umetrack_torch.parallel.train import (  # noqa: E402
     temporal_train_step,
     train_step,
 )
-from umetrack_torch.tracker import TrackerConfig  # noqa: E402
-from umetrack_torch.tracker.types import CameraRig, FrameObservation  # noqa: E402
+from umetrack_torch.tracker import TrackerConfig, sequence_landmarks  # noqa: E402
+from umetrack_torch.tracker import tracker  # noqa: E402
+from umetrack_torch.tracker.types import CameraRig, FrameObservation, TrackState  # noqa: E402
 from umetrack_torch.utils.synthetic import make_labels_dict, our_sequence  # noqa: E402
 from torch_threads import few_threads  # noqa: E402,F401  (autouse: two CPU threads)
 
@@ -183,6 +186,33 @@ def run_eval(mesh):
     return {"known": [x.clone() for x in known], "unknown": [x.clone() for x in unknown]}
 
 
+def prepare_crops(path):
+    """The eval sequences' crop sets and crop images, prepared once with no
+    group (``_prepare_sequences_merged``, leaves ``[T, 2S, ...]``), saved to
+    ``path`` for every rank."""
+    rigs, seqs, hands = eval_inputs()
+    with torch.inference_mode():
+        crop_sets, crop_images = tracker._prepare_sequences_merged(TrackerConfig(), rigs, seqs, hands, 1, "plain")
+    torch.save(dict(crop_sets=crop_sets, crop_images=crop_images,
+                    skeleton=tracker._skeleton_inputs(hands, repeat=2), hand_idx=torch.arange(2).repeat(S)), path)
+
+
+def run_same_crops(mesh, path):
+    """``_model_scan`` of the seeded model on this data index's rows of the
+    crops :func:`prepare_crops` saved: (first sequence, angles, wrists mm,
+    valid), leaves ``[T, rows, ...]``."""
+    crops = torch.load(path, weights_only=False)
+    model = init_train_model(ModelConfig(**SMALL), seed=0, device="cpu").eval()
+    shard_variables(model, mesh)
+    rows = block(2 * S, mesh)
+    with torch.inference_mode():
+        res, _ = tracker._model_scan(
+            model, TrackerConfig(), crops["crop_sets"].map(lambda a: a[:, rows]), crops["crop_images"][:, rows],
+            TrackState.init(model.config, rows.stop - rows.start), crops["skeleton"].map(lambda a: a[rows]),
+            crops["hand_idx"][rows])
+    return rows.start // 2, res.joint_angles.clone(), res.wrist_xfs.clone(), res.valid.clone()
+
+
 def run_collectives(mesh):
     """The model axis's collectives on small tensors: the gather's values and
     its backward (this rank's slice, nothing summed), the copy's backward
@@ -231,6 +261,7 @@ def worker(rank: int, port: int, out_dir: str) -> None:
             "collectives": run_collectives(mesh),
             "steps": run_steps(mesh),
             "eval": run_eval(mesh),
+            "same_crops": run_same_crops(mesh, os.path.join(out_dir, "crops.pt")),
             "app": run_app(mesh, out_dir),
         }
     finally:
@@ -311,6 +342,7 @@ def workers(tmp_path_factory):
     """Starts the four ranks, computes the JAX (2, 2) mesh's and the one-process
     port's references while they run, then collects the ranks' results."""
     out = str(tmp_path_factory.mktemp("tp"))
+    prepare_crops(os.path.join(out, "crops.pt"))
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -318,7 +350,7 @@ def workers(tmp_path_factory):
                               cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(WORLD)]
     try:
-        refs = {"jax": jax_mesh_references(), "one": one_process_references()}
+        refs = {"jax": jax_mesh_references(), "one": one_process_references(out)}
         logs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
     finally:
         for p in procs:
@@ -329,9 +361,10 @@ def workers(tmp_path_factory):
     return dict(ranks=ranks, out=out, **refs)
 
 
-def one_process_references():
+def one_process_references(out):
     mesh = make_mesh()
-    return {"steps": run_steps(mesh), "eval": run_eval(mesh)}
+    return {"steps": run_steps(mesh), "eval": run_eval(mesh),
+            "same_crops": run_same_crops(mesh, os.path.join(out, "crops.pt"))}
 
 
 def jax_mesh_references():
@@ -508,6 +541,45 @@ def test_tp_eval_matches_one_process(workers, protocol):
         np.testing.assert_allclose(got[2], want[2], rtol=EVAL_RTOL)
         if protocol == "unknown":
             np.testing.assert_allclose(got[3], want[3], rtol=EVAL_RTOL, atol=1e-6)
+
+
+def _scan_errors(first, angles, wrists, valid):
+    """Per-sequence mean landmark errors (mm, as ``eval_sequences_batched``
+    computes them) and the tracked landmarks of a scan whose rows start at
+    sequence ``first``."""
+    _, seqs, hands = eval_inputs()
+    errors, landmarks = [], []
+    for j in range(angles.shape[1] // 2):
+        i, rows = first + j, slice(2 * j, 2 * j + 2)
+        hand = hands.map(lambda a: a[i])
+        tracked = sequence_landmarks(hand, angles[:, rows], wrists[:, rows])
+        gt = sequence_landmarks(hand, seqs.gt_joint_angles[i], seqs.gt_wrist_xfs[i])
+        err = torch.linalg.vector_norm(tracked - gt, dim=-1).mean(dim=-1)
+        v = valid[:, rows].to(err.dtype)
+        errors.append(float((err * v).sum() / v.sum().clamp(min=1.0)))
+        landmarks.append(tracked)
+    return np.array(errors), torch.stack(landmarks)
+
+
+def test_tp_scan_on_the_same_crops_matches_one_process(workers):
+    """Crops prepared once with no group: each rank's ``_model_scan`` of
+    its data block's rows against the one process's scan of all rows, at the
+    sharded-eval bounds: what the model and data axes do to the recurrent
+    model alone, with the crop fit taken out."""
+    first, *want = workers["one"]["same_crops"]
+    assert first == 0
+    want_errors, want_landmarks = _scan_errors(0, *want)
+    assert want[2].any() and np.isfinite(want_errors).all()
+    for rank, res in enumerate(workers["ranks"]):
+        first, angles, wrists, valid = res["same_crops"]
+        assert first == (rank // MODEL) * (S // DATA) and angles.shape[1] == 2 * S // DATA
+        rows = slice(2 * first, 2 * first + angles.shape[1])
+        assert torch.equal(valid, want[2][:, rows])
+        errors, landmarks = _scan_errors(first, angles, wrists, valid)
+        np.testing.assert_allclose(errors, want_errors[first:first + len(errors)], rtol=EVAL_RTOL,
+                                   atol=EVAL_MM_TOL)
+        np.testing.assert_allclose(landmarks.numpy(), want_landmarks[first:first + len(errors)].numpy(),
+                                   atol=EVAL_MM_TOL)
 
 
 def test_tp_train_app_checkpoint_reloads_unsharded(workers):

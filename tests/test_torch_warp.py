@@ -133,3 +133,31 @@ def test_warp_pool_wrapper_checks():
         warp_pool(pool, coords[:2], good)
     with pytest.raises(ValueError):
         warp_pool(pool.transpose(1, 2), coords, good)
+
+
+def test_grid_sample_is_not_the_pool_warp():
+    """Why the kernels' ``library_ms`` is null: ``grid_sample`` (5-D, the
+    depth picking each warp's pool image, bilinear, zero padding) agrees
+    with the pool warp's plain version inside the valid cells, but not in
+    the last column and row band, where the warp clamps the floor to W-2 /
+    H-2 and takes that column or row alone, nor outside, where the warp
+    gives 0 and ``grid_sample`` blends the border pixels with zeros."""
+    rng = np.random.default_rng(3)
+    m, h, w = 4, 48, 64
+    pool = rng.integers(0, 256, (m, h, w), dtype=np.uint8)
+    coords = (rng.uniform(-2.0, 1.0, (6, 24, 32, 2)) * [w + 2, h + 2] + [w, h]).astype(np.float32)
+    src = rng.integers(0, m, 6).astype(np.int32)
+    ours = _plain(pool, coords, src)
+    grid = torch.from_numpy(coords) * torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)]) - 1.0
+    z = (2.0 * torch.from_numpy(src).float() / (m - 1) - 1.0).view(-1, 1, 1, 1).expand(*grid.shape[:-1], 1)
+    lib = torch.nn.functional.grid_sample(torch.from_numpy(pool).float()[None, None],
+                                          torch.cat([grid, z], dim=-1)[None], mode="bilinear",
+                                          padding_mode="zeros", align_corners=True)[0, 0].numpy()
+    x, y = coords[..., 0], coords[..., 1]
+    inside = (x >= 0) & (x < w - 2) & (y >= 0) & (y < h - 2)
+    band = ((x > w - 2) & (x < w - 1) & (y >= 0) & (y < h - 2)) | ((y > h - 2) & (y < h - 1) & (x >= 0) & (x < w - 2))
+    outside = ((x < -0.5) | (y < -0.5)) & (x > -1) & (y > -1)
+    assert inside.any() and band.any() and outside.any()
+    np.testing.assert_allclose(lib[inside], ours[inside], atol=ATOL)
+    assert (np.abs(lib[band] - ours[band]) > 1.0).any()
+    assert (ours[outside] == 0).all() and (lib[outside] != 0).any()

@@ -13,7 +13,7 @@ import logging
 
 import numpy as np
 
-from ..kinematics.hand import GENERIC_HAND_JSON, from_dict, load_generic_hand_dict
+from ..kinematics.hand import VENDORED_HAND_JSON, from_dict, load_generic_hand_dict
 from .run_eval_known_skeleton import (
     add_eval_flags,
     make_tracker,
@@ -30,7 +30,7 @@ from .sequence_eval import (
 logger = logging.getLogger(__name__)
 
 # the generic hand the unknown-skeleton protocol scales (the data asset)
-DEFAULT_GENERIC_HAND = GENERIC_HAND_JSON
+DEFAULT_GENERIC_HAND = VENDORED_HAND_JSON
 
 
 def main(argv=None):

@@ -28,10 +28,14 @@ NUM_DIGITS = 5
 NUM_JOINT_FRAMES = 1 + 1 + 3 * 5  # root + wrist + 3 frames per digit
 DOF_PER_FINGER = 4
 
-GENERIC_HAND_JSON = os.path.join(
+VENDORED_HAND_JSON = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "..", "assets",
     "generic_hand_model.json",
 )
+# The generic hand of load_generic_hand_dict() and of every synthetic
+# sequence: the file UMETRACK_GENERIC_HAND_JSON names, else the vendored
+# asset (the JAX package reads it so in utils/synthetic.py).
+GENERIC_HAND_JSON = os.environ.get("UMETRACK_GENERIC_HAND_JSON", VENDORED_HAND_JSON)
 
 
 class Landmark(Enum):

@@ -23,7 +23,8 @@ import torch
 from torch.nn import functional as F
 
 from .._device import resolve_device
-from ..kinematics.hand import (
+from ..kinematics.hand import (  # noqa: F401 -- GENERIC_HAND_JSON: the JAX module's name
+    GENERIC_HAND_JSON,
     from_dict,
     load_generic_hand_dict,
     mirrored_hand_model,
