@@ -93,7 +93,23 @@ exits non-zero without a result line:
    scale 2e-3, chunked keypoints 2e-3 mm) and with the checkpoint at wider
    ones, for the reason given at ``TRAINED`` below; on the same crops the
    checkpoint too is held to the strict bounds.  The pool kernel's counter
-   is set to 0 just before each entry-point call and read just after it;
+   is set to 0 just before each entry-point call and read just after it.
+   Before the streaming checks, ``[graph]``: the three serving entry points
+   as captured CUDA graphs (``umetrack_torch/tracker/compiled.py``, the
+   counterpart of their ``jax.jit``), ``track_frame`` (both heads) over a
+   capsule-rendered 64-frame sequence, ``track_sequence`` in chunks of 16
+   and ``track_sequences_batched`` at S=64 x T=16, in f32 (TF32) and bf16,
+   with seeded weights and with the checkpoint: captured on inputs A,
+   replayed on inputs B and held against the eager call on B bit for bit
+   (the max abs difference printed; were it not, the JAX tests' bounds,
+   with the cause printed); TF32 off recaptures and replays TF32-off
+   results; an in-place ``load_state_dict`` between replays is followed by
+   the same graph; an ``src_idx`` outside the pool, eager and replayed, in
+   a subprocess each, returns without a host wait and fails the next
+   synchronisation with a device-side assert; ms a frame or a call eager and
+   graphed, the host's ms a replay, the batched call four deep, the device's
+   busy share under each, capture ms and graph pool per key; one
+   ``warp_pool`` launch a call and a frame, each counted from 0;
 9. the batched and sharded evaluation (``parallel/eval.py``) at S=64 x
    T=16, full width, f32, with seeded weights and with the checkpoint:
    ``eval_sequences_batched`` (one ``warp_pool`` launch a call) and
@@ -2084,8 +2100,8 @@ def phase_streaming(wp_mod, models, tally, card):
         f"{EVAL_FRAMES / seq_ms * 1e3:.1f} frames/s; a streaming frame costs "
         f"{loop_ms / seq_ms:.1f} x a hoisted one; of a frame, the crop geometry alone takes "
         f"{geom_ms:.3f} ms; at its shape (pool {tuple(shapes[0]['pool'])}, {shapes[0]['warps']} warps) "
-        f"the pool kernel runs {shapes[0]['kernel_ms']:.4f} ms and the wrapper's src_idx range check "
-        f"waits {shapes[0]['check_ms']:.4f} ms a frame [{card}]")
+        f"the pool kernel runs {shapes[0]['kernel_ms']:.4f} ms and the wrapper's checks (the src_idx "
+        f"range as a device-side assert) take {shapes[0]['check_ms']:.4f} ms a frame [{card}]")
     phase_profile(lambda: loop(tracker, tracker.track_frame), f"{EVAL_FRAMES} track_frame calls",
                   "warp_pool_kernel", card, top=8)
     phase_profile(lambda: pool_warp_operands(config, one(rig), one(one(frames[0])), one(hand)),
@@ -3784,6 +3800,295 @@ def mpjpe_trail(rows):
     return " -> ".join(f"{h['eval_mpjpe_mm']:.1f}" for h in rows)
 
 
+# ---- the compiled steps: captured CUDA graphs ---------------------------------
+
+
+GRAPH_SEEDS = (3_000_001, 3_000_002)  # the rendered sequences A (capture) and B (replay)
+GRAPH_PIPELINE = 4  # track_sequences_batched calls submitted back to back
+GRAPH_PROFILED = 16  # frames or chunks of a run under torch.profiler (its busy share)
+
+
+def tree_gap(a, b):
+    """(bit for bit, max abs difference) over every tensor of two results."""
+    import torch
+    from umetrack_torch.tracker.compiled import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    check(len(la) == len(lb) and all(x.shape == y.shape and x.dtype == y.dtype for x, y in zip(la, lb)),
+          "results of another structure")
+    same = all(torch.equal(x, y) for x, y in zip(la, lb))
+    gap = max([float((x.double() - y.double()).abs().max()) for x, y in zip(la, lb)
+               if x.is_floating_point() and x.numel()] + [0.0])
+    return same, gap
+
+
+def hold_graph(graphed, eager, label):
+    """A replay against the eager call on the same inputs: bit for bit, or,
+    printed with its cause, within the JAX tests' bounds."""
+    same, gap = tree_gap(graphed, eager)
+    if not same:
+        res_g, res_e = (x[0] if isinstance(x, tuple) else x for x in (graphed, eager))
+        result_diff(res_g, res_e, f"[graph] {label}: replay against eager", STRICT)
+        log(f"[graph] {label}: NOT bit for bit, max abs difference {gap:.3e} (held at the JAX "
+            f"tests' bounds)")
+    return same, gap
+
+
+def oor_worker(mode):
+    """An ``src_idx`` outside the pool on the card, in a process of its own
+    (a device-side assert leaves its CUDA context unusable): ``eager`` calls
+    the wrapper, ``graph`` replays a captured step with the bad index copied
+    in.  Prints what it got to before the error; exits non-zero when the
+    error surfaces, 0 if it never does."""
+    import torch
+    from umetrack_torch.ops.warp_pool import warp_pool
+    from umetrack_torch.tracker.compiled import CompiledStep
+
+    pool = torch.zeros((2, 20, 32), dtype=torch.uint8, device="cuda")
+    coords = torch.full((3, 4, 8, 2), 3.0, device="cuda")
+    good = torch.tensor([0, 1, 1], dtype=torch.int32, device="cuda")
+    bad = torch.tensor([0, 2, 1], dtype=torch.int32, device="cuda")
+
+    def step(model, src_idx):
+        return warp_pool(pool, coords, src_idx)
+
+    model, compiled = torch.nn.Module(), CompiledStep(step)
+    call = (lambda idx: warp_pool(pool, coords, idx)) if mode == "eager" else (
+        lambda idx: compiled(model, torch.device("cuda"), dict(src_idx=idx)))
+    call(good)  # under "graph": eager, then the capture
+    call(good)  # under "graph": a replay, as is the bad call below
+    torch.cuda.synchronize()
+    print(f"{mode}: valid calls done", flush=True)
+    call(bad)
+    print(f"{mode}: the bad call returned without waiting", flush=True)
+    torch.cuda.synchronize()
+    print(f"{mode}: NOT CAUGHT", flush=True)
+    return 0
+
+
+def phase_graph_oor():
+    """``[graph]``: the out-of-range ``src_idx`` in its subprocesses, both
+    started together."""
+    procs = {mode: subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--oor-worker", mode],
+                                    cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for mode in ("eager", "graph")}
+    for mode, proc in procs.items():
+        try:
+            out, err_text = proc.communicate(timeout=180)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        err = [ln for ln in err_text.splitlines() if "CUDA error" in ln or "assert" in ln.lower()]
+        check(proc.returncode != 0 and f"{mode}: the bad call returned without waiting" in out
+              and "NOT CAUGHT" not in out and err,
+              f"[graph] src_idx outside the pool, {mode}: exit {proc.returncode}, stdout {out!r}, "
+              f"stderr {err_text[-2000:]}")
+        log(f"[graph] src_idx outside the pool ({mode}): the call returned without a host wait, the next "
+            f"synchronisation failed, exit {proc.returncode}: {err[0].strip()[:160]}")
+
+
+def phase_graph(wp_mod, models, tally, card):
+    """``[graph]``: the three entry points as captured CUDA graphs (see the
+    module's docstring).  ``models``: (name, f32 model, bf16 model).
+    Returns the rows of numbers for PERF.md by label."""
+    import torch
+    from umetrack_torch.models import ModelConfig, make_model
+    from umetrack_torch.tracker import HandTracker, compiled
+    from umetrack_torch.tracker import tracker as T
+    from umetrack_torch.utils.synthetic import make_sequences
+
+    free_card()
+    _, _, (rig_a, seq_a, hand_a) = rendered_sequence(EVAL_FRAMES, GRAPH_SEEDS[0], "cuda")
+    _, _, (rig_b, seq_b, hand_b) = rendered_sequence(EVAL_FRAMES, GRAPH_SEEDS[1], "cuda")
+    frames_a = [seq_a.map(lambda a, i=i: a[i]) for i in range(EVAL_FRAMES)]
+    frames_b = [seq_b.map(lambda a, i=i: a[i]) for i in range(EVAL_FRAMES)]
+    chunks_a = [seq_a.map(lambda a, i=i: a[i:i + EVAL_CHUNK]) for i in range(0, EVAL_FRAMES, EVAL_CHUNK)]
+    chunks_b = [seq_b.map(lambda a, i=i: a[i:i + EVAL_CHUNK]) for i in range(0, EVAL_FRAMES, EVAL_CHUNK)]
+    batch_a = make_sequences(S_BENCH, T_BENCH, seed=0, device="cuda")
+    batch_b = make_sequences(S_BENCH, T_BENCH, seed=S_BENCH, device="cuda")
+    cuda = torch.device("cuda")
+
+    def entries(tracker):
+        """(label, graphed, eager, capture input, replay inputs, calls a run):
+        graphed / eager map (input, state) to (result, state)."""
+        model, config = tracker.model, tracker.config
+
+        def frame(known, crops):
+            def run(step_of):
+                def go(obs_rig_hand, state):
+                    rig, obs, hand = obs_rig_hand
+                    return T._entry(step_of, model, cuda, dict(rig=rig, obs=obs, state=state, hand_model_mm=hand),
+                                    config=config, min_num_crops=crops, known=known)
+                return go
+            return run(T._FRAME), run(T._FRAME.eager)
+
+        def sequence(step_of):
+            def go(rig_seq_hand, state):
+                rig, seq, hand = rig_seq_hand
+                return T._entry(step_of, model, cuda, dict(rig=rig, seq=seq, init_state=state, hand_model_mm=hand,
+                                                          skel_hand_model_mm=None),
+                                config=config, min_num_crops=1)
+            return go
+
+        def batched(step_of):
+            def go(inputs, state):
+                rigs, seqs, hands = inputs
+                return T._entry(step_of, model, cuda, dict(rigs=rigs, seqs=seqs, init_state=state,
+                                                          hand_models_mm=hands, skel_hand_models_mm=None),
+                                config=config, min_num_crops=1)
+            return go
+
+        known = frame(True, 1)
+        scale = frame(False, 2)
+        return [
+            ("track_frame, known skeleton", *known, (rig_a, frames_a[0], hand_a),
+             [(rig_b, f, hand_b) for f in frames_b], tracker.init_state),
+            ("track_frame, scale head", *scale, (rig_a, frames_a[0], hand_a),
+             [(rig_b, f, hand_b) for f in frames_b], tracker.init_state),
+            (f"track_sequence, chunks of {EVAL_CHUNK}", sequence(T._SEQUENCE), sequence(T._SEQUENCE.eager),
+             (rig_a, chunks_a[0], hand_a), [(rig_b, c, hand_b) for c in chunks_b], tracker.init_state),
+            (f"track_sequences_batched S={S_BENCH} T={T_BENCH}", batched(T._SEQUENCES_BATCHED),
+             batched(T._SEQUENCES_BATCHED.eager), batch_a, [batch_b],
+             lambda: tracker.init_state(2 * S_BENCH)),
+        ]
+
+    def run_all(fn, inputs, init, counted=None):
+        """``fn`` over ``inputs`` with the state threaded; results of each."""
+        state, outs = init(), []
+        for x in inputs:
+            out = counted(lambda: fn(x, state), 1, "a compiled call") if counted else fn(x, state)
+            state = out[1]
+            outs.append(out)
+        return outs
+
+    rows = {}
+    for wname, m32, m16 in models:
+        for dname, model in (("f32 (TF32)", m32), ("bf16", m16)):
+            tracker = HandTracker(model, device="cuda")
+            for label, graphed, eager, capture_in, replay_in, init in entries(tracker):
+                full = f"{label}, {dname}, {wname}"
+                n_before = len(compiled.cached())
+                tally(lambda: graphed(capture_in, init()), 1, f"[graph] {full}: the capturing call")
+                captured = compiled.last_capture()
+                check(captured is not None and captured.launched[0][0] == 1,
+                      f"[graph] {full}: the capture recorded {captured and captured.launched[0]} pool launches")
+                outs_g = run_all(graphed, replay_in, init, tally)
+                outs_e = run_all(eager, replay_in, init, tally)
+                same, gap = True, 0.0
+                for g, e in zip(outs_g, outs_e):
+                    s, d = hold_graph(g, e, full)
+                    same, gap = same and s, max(gap, d)
+                check(compiled.last_capture() is captured, f"[graph] {full}: a replay recaptured")
+                # the replays ran on B, not on the capture's A
+                first_a = eager(capture_in, init())
+                check(not tree_gap(outs_g[0], first_a)[0],
+                      f"[graph] {full}: the replay on B equals the eager call on A")
+                log(f"[graph] {full}: captured on A in {captured.capture_ms:.1f} ms, graph pool "
+                    f"{captured.pool_bytes / 2**20:.1f} MiB; {len(replay_in)} replays on B against the eager "
+                    f"calls on B: bit for bit {same}, max abs difference {gap:.3e}; one warp_pool launch "
+                    f"a call (graphs cached {n_before} -> {len(compiled.cached())}) [{card}]")
+                rows[full] = dict(capture_ms=captured.capture_ms, pool_mib=captured.pool_bytes / 2**20,
+                                  bit_for_bit=same, max_abs=gap)
+
+    # a TF32 toggle recaptures and replays without TF32; an in-place load is followed
+    model = make_model(ModelConfig(), seed=0, device="cuda")
+    ckpt = models[-1][1]
+    tracker = HandTracker(model, device="cuda")
+    for label, graphed, eager, capture_in, replay_in, init in entries(tracker):
+        x = replay_in[0]
+        graphed(capture_in, init())
+        captured_on = compiled.last_capture()
+        on = graphed(x, init())
+        with tf32_off():
+            graphed(capture_in, init())
+            captured_off = compiled.last_capture()
+            off = graphed(x, init())
+            eager_off = eager(x, init())
+        check(captured_off is not captured_on, f"[graph] {label}: TF32 off did not recapture")
+        same_off, gap_off = hold_graph(off, eager_off, f"{label}, TF32 off")
+        tf32_moves = not tree_gap(on, off)[0]
+        check(tf32_moves, f"[graph] {label}: the TF32-off replay equals the TF32-on one")
+        graphed(x, init())  # TF32 on again: the first graph, still cached
+        check(compiled.last_capture() is captured_on, f"[graph] {label}: TF32 on again recaptured")
+        before = compiled.last_capture()
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(ckpt.state_dict())
+        loaded = graphed(x, init())
+        check(compiled.last_capture() is before, f"[graph] {label}: an in-place load recaptured")
+        same_ld, gap_ld = hold_graph(loaded, eager(x, init()), f"{label}, after an in-place load")
+        check(not tree_gap(loaded, on)[0], f"[graph] {label}: the replay did not follow the load")
+        model.load_state_dict(saved)
+        log(f"[graph] {label}, f32: TF32 off recaptured (key {len(compiled.cached())} cached), its replay "
+            f"against eager TF32 off bit for bit {same_off} (max {gap_off:.3e}), moved from the TF32 replay; "
+            f"after an in-place load_state_dict of the checkpoint the same graph replays the new weights: "
+            f"bit for bit with eager {same_ld} (max {gap_ld:.3e})")
+    del model, tracker
+
+    phase_graph_oor()
+    rows.update(graph_times(models[0], entries, run_all, card))
+    free_card()
+    return rows
+
+
+def graph_times(seeded, entries, run_all, card):
+    """``[graph]`` times, seeded weights, f32 (TF32) and bf16: ms a call or
+    frame eager and graphed (host clock around the run, synchronised), the
+    host's ms a call (until it returns, before the device is done), the
+    batched call four deep, and the first GRAPH_PROFILED frames or chunks
+    under torch.profiler for the device's busy share.  The eager forms are
+    warm from :func:`phase_graph`'s comparisons."""
+    import dataclasses
+
+    import torch
+    from umetrack_torch.tracker import HandTracker
+
+    rows = {}
+    _, m32, m16 = seeded
+    for dname, model in (("f32 (TF32)", m32), ("bf16", m16)):
+        tracker = HandTracker(model, device="cuda")
+        for label, graphed, eager, capture_in, replay_in, init in entries(tracker):
+            if label.startswith("track_frame, scale"):
+                continue
+            row = {}
+            for form, fn in (("eager", eager), ("graphed", graphed)):
+                if form == "graphed":
+                    fn(capture_in, init())  # captured again if the cache dropped it
+                host, state = [], init()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for x in replay_in:
+                    t0 = time.perf_counter()
+                    _, state = fn(x, state)
+                    host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - start) * 1e3
+                prof = profile_call(lambda: run_all(fn, replay_in[:GRAPH_PROFILED], init))
+                profiled = min(len(replay_in), GRAPH_PROFILED)
+                row[form] = dict(ms=wall / len(replay_in), host_ms=sum(host) / len(host),
+                                 busy=prof["device_ms"] / prof["wall_ms"],
+                                 device_ms=prof["device_ms"] / profiled, launches=prof["launches"] / profiled)
+                if label.startswith("track_sequences_batched"):
+                    (rigs, seqs, hands), = replay_in
+                    variants = [dataclasses.replace(seqs, images=seqs.images + (i + 1)) for i in range(GRAPH_PIPELINE)]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for v in variants:
+                        fn((rigs, v, hands), init())
+                    torch.cuda.synchronize()
+                    row[form]["pipelined_ms"] = (time.perf_counter() - t0) * 1e3 / GRAPH_PIPELINE
+            unit = "frame" if label.startswith("track_frame") else "call"
+            piped = {f: (f", {GRAPH_PIPELINE} deep {row[f]['pipelined_ms']:.1f} ms a call"
+                         if "pipelined_ms" in row[f] else "") for f in row}
+            text = {f: (f"{row[f]['ms']:.3f} ms a {unit} (host {row[f]['host_ms']:.3f} ms a "
+                        f"{'replay' if f == 'graphed' else 'call'}, under the profiler device "
+                        f"{row[f]['device_ms']:.3f} ms and {row[f]['launches']:.0f} kernels a {unit}, busy "
+                        f"{row[f]['busy']:.3f}{piped[f]})") for f in row}
+            log(f"[graph] {label}, {dname}, seeded weights, {len(replay_in)} {unit}s: eager {text['eager']}; "
+                f"graphed {text['graphed']}: {row['eager']['ms'] / row['graphed']['ms']:.2f} x [{card}]")
+            rows[f"{label}, {dname} times"] = row
+    return rows
+
+
 def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
     """``launches``: the kernel's launches over the main paths' runs, each
     path counted from 0 (``launches_by_path`` says which path made how many).
@@ -3799,6 +4104,16 @@ def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
         "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
         "library_ms": None, "nearest_library": NEAREST_LIBRARY, "nearest_library_ms": numbers["grid_sample_ms"],
     }
+
+
+def free_card():
+    """Drop the compiled steps' graphs and the allocator's cached blocks
+    between phases."""
+    import torch
+    from umetrack_torch.tracker import compiled
+
+    compiled.release()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -3824,7 +4139,7 @@ def main():
     pool_kern, pool_operands = phase_kernel(wp_mod, rigs, seqs, hands, card)
     image_kern = phase_image_kernels(wi_mod, wp_mod, pool_operands, card)
     del pool_operands
-    torch.cuda.empty_cache()
+    free_card()
 
     model_cuda = make_model(ModelConfig(), seed=0, device="cuda")
     pool_launches = phase_slice(wp_mod, model_cuda, rigs, seqs, hands, card)
@@ -3839,7 +4154,7 @@ def main():
     bf16_ms = phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
     bf16_tracker_launches = bf16_tally.total
     del rigs, seqs, hands
-    torch.cuda.empty_cache()
+    free_card()
 
     # the tracker bench: python -m umetrack_torch.bench in subprocesses
     t_bench = time.perf_counter()
@@ -3857,6 +4172,16 @@ def main():
     # after; what the comparisons, timings and profiles launch stays out
     ckpt_cpu, ckpt_cuda = phase_checkpoint(card)
     models = [("seeded weights", model_cuda, STRICT), ("checkpoint", ckpt_cuda, TRAINED)]
+    ckpt16 = make_model(ModelConfig(compute_dtype=BF16), device="cuda")
+    ckpt16.load_state_dict(ckpt_cuda.state_dict())
+
+    # the compiled steps: each capturing, replayed and eager call counted from 0
+    t_graph = time.perf_counter()
+    graph_tally = LaunchTally(wp_mod.warp_pool)
+    phase_graph(wp_mod, [("seeded weights", model_cuda, model16), ("checkpoint", ckpt_cuda, ckpt16)],
+                graph_tally, card)
+    log(f"[graph] the phase took {time.perf_counter() - t_graph:.1f} s, {graph_tally.total} warp_pool "
+        f"launches over its tracker calls")
     tally = LaunchTally(wp_mod.warp_pool)
     eval_shapes = phase_streaming(wp_mod, models, tally, card)
     rigs, seqs, hands = make_sequences(S_BENCH, T_BENCH, seed=0, device="cuda")
@@ -3871,21 +4196,19 @@ def main():
     log(f"[batched-eval] warp_pool launches over the batched evaluation's entry-point calls: "
         f"{batch_tally.total}")
     del rigs, seqs, hands, unsharded
-    torch.cuda.empty_cache()
+    free_card()
 
     # the tensor-parallel model axis: worker processes sharing this card
     t_tp = time.perf_counter()
     tp_launches = phase_tp(ckpt_cuda, card)
     log(f"[tp] the phase took {time.perf_counter() - t_tp:.1f} s")
-    torch.cuda.empty_cache()
+    free_card()
     f32_known = phase_eval_apps(models, tally, card)
     log(f"[eval] warp_pool launches over the evaluation path's entry-point calls: {tally.total}")
     phase_eval_cpu_vs_card([("seeded weights", model_cpu, model_cuda, STRICT),
                             ("checkpoint", ckpt_cpu, ckpt_cuda, TRAINED_CPU)])
 
     # the raw_data evaluation in bf16: the checkpoint's weights in a bf16 model
-    ckpt16 = make_model(ModelConfig(compute_dtype=BF16), device="cuda")
-    ckpt16.load_state_dict(ckpt_cuda.state_dict())
     eval16_tally = LaunchTally(wp_mod.warp_pool)
     phase_bf16_streaming(wp_mod, [("seeded weights", model16, BF16_LOOP),
                                   ("checkpoint", ckpt16, BF16_LOOP_TRAINED)], eval16_tally, card)
@@ -3894,7 +4217,7 @@ def main():
         f"{bf16_tracker_launches}, raw_data eval {eval16_tally.total}")
 
     del ckpt_cpu, ckpt_cuda, ckpt16, models, model_cpu, model_cuda, model16, tracker
-    torch.cuda.empty_cache()
+    free_card()
 
     # the training slice: each entry-point call counted from 0 (the
     # comparisons with the plain versions, phase_train_kernels, come before
@@ -3905,11 +4228,11 @@ def main():
     prep_launches, corpus, f32_step_ms = phase_resident(wp_mod, wi_mod, card)
     phase_bf16_resident(corpus, f32_step_ms, card)
     del corpus
-    torch.cuda.empty_cache()
+    free_card()
     syn_launches, tree_launches, syn_bf16 = phase_train_app(wp_mod, wi_mod, card)
     distill_pool, distill_full, _ = phase_distill(wp_mod, wi_mod, card)
     log(f"[train] the training phases took {time.perf_counter() - t_train:.1f} s")
-    torch.cuda.empty_cache()
+    free_card()
 
     # the accuracy workflow: each driver call counted from 0
     acc, acc_full_row = phase_accuracy(wp_mod, wi_mod, card)
@@ -3918,7 +4241,8 @@ def main():
     log(json.dumps({"kernels": [
         kernel_entry("warp_pool", "umetrack_torch/csrc/warp_pool.cu",
                      "umetrack_tpu/ops/pallas_resample.py:243",
-                     {"tracker": pool_launches, "raw_data eval": tally.total,
+                     {"tracker": pool_launches, "compiled steps": graph_tally.total,
+                      "raw_data eval": tally.total,
                       "batched eval": batch_tally.total, "orbax checkpoint tracker": orbax_tally.total,
                       "train prepare_tracker_sequences": prep_launches, "distill eval": distill_pool,
                       "bf16 tracker and batched eval": bf16_tracker_launches,
@@ -3952,4 +4276,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--oor-worker"]:
+        sys.exit(oor_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -6,7 +6,7 @@ fallback, so a CPU run is never mistaken for a GPU run.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -24,3 +24,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def device_constant(values: Sequence[float], dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)`` made by fill
+    kernels on the device instead of a copy from host memory, which waits
+    for the device and which a CUDA graph cannot capture."""
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device) for v in values])

@@ -11,13 +11,16 @@ seeded random weights.  The inputs are those of the JAX package's bench:
 ``make_labels_dict(T, rng_seed=0)`` and ``our_sequence`` stacked S times,
 a zero tracker state, the weights drawn from seed 0.
 
-After one warm-up call, ``pipeline_depth`` calls are submitted back to back
-on inputs already on the card (``images + i + 1`` in uint8, which wraps),
-between two ``torch.cuda.synchronize()``; frames/s = S*T / (wall / depth).
-The FLOPs are counted by ``torch.utils.flop_counter`` over one more call
-outside the timed window; on an H100 the line gives them as a share of the
-card's dense peak for the compute dtype.  One ``[bench]`` line goes to
-stderr and one JSON line to stdout:
+After one warm-up call (on the card the eager run and the capture of the
+call's CUDA graph, ``tracker/compiled.py``: the counterpart of the JAX
+bench's compile), ``pipeline_depth`` calls (graph replays) are submitted
+back to back on inputs already on the card (``images + i + 1`` in uint8,
+which wraps), between two ``torch.cuda.synchronize()``; frames/s = S*T /
+(wall / depth).  The FLOPs are counted by ``torch.utils.flop_counter`` over
+one more call, run eagerly (a replay passes no dispatcher), outside the
+timed window; on an H100 the line gives them as a share of the card's dense
+peak for the compute dtype.  One ``[bench]`` line goes to stderr, with the
+capture's ms and the graph's memory, and one JSON line to stdout:
 
     {"metric": "tracker_frames_per_s_per_chip", "value": N, "unit": "frames/s",
      "vs_baseline": null}
@@ -44,7 +47,12 @@ from .models import ModelConfig, init_model
 from .ops.warp_image import warp_image_full, warp_image_windowed
 from .ops.warp_pool import warp_pool
 from .tracker import TrackerConfig, TrackState
-from .tracker.tracker import _prepare_sequences_merged, track_sequences_batched
+from .tracker import compiled
+from .tracker.tracker import (
+    _prepare_sequences_merged,
+    _track_sequences_batched_eager,
+    track_sequences_batched,
+)
 from .tracker.types import SAMPLERS
 from .utils.synthetic import make_labels_dict, our_sequence
 
@@ -149,8 +157,10 @@ def bench_ours(t_frames=16, n_seqs=64, pipeline_depth=4, compute_dtype="bfloat16
         _sync(device)
         prep_ms = (time.perf_counter() - t0) / BREAKDOWN_REPS * 1e3
 
-    submit(seqs)  # warm-up: cuDNN picks its algorithms
-    flops = count_flops(lambda: submit(seqs)) / n_frames
+    submit(seqs)  # warm-up: cuDNN picks its algorithms, the graph is captured
+    captured = compiled.last_capture("_sequences_batched_step")
+    flops = count_flops(lambda: _track_sequences_batched_eager(
+        model, cfg, rigs, seqs, state, hands, device=device)) / n_frames
     flop_source = "torch-counted" if flops > 0 else "analytic-fallback"
     if flops <= 0:
         flops = MODEL_FLOPS_PER_FRAME_FALLBACK
@@ -170,10 +180,12 @@ def bench_ours(t_frames=16, n_seqs=64, pipeline_depth=4, compute_dtype="bfloat16
     prep_txt = (f"prep {prep_ms:.1f} ms (scan-ish {call_s * 1e3 - prep_ms:.1f} ms), "
                 if prep_ms is not None else "")
     launches = ", ".join(f"{kernel.__name__} {kernel.launches}" for kernel in WARP_KERNELS)
+    graph = (f"CUDA graph captured in {captured.capture_ms:.1f} ms, pool {captured.pool_bytes / 2**20:.1f} MiB"
+             if captured else "no CUDA graph")
     print(f"[bench] dtype={compute_dtype} sampler={sampler or f'auto({resolved})'} "
           f"S={n_seqs} T={t_frames}: {prep_txt}fused {call_s * 1e3:.1f} ms, {fps:.0f} frames/s, "
           f"{tflops:.1f} TFLOP/s on {flop_source} {flops / 1e9:.3f} GFLOP/frame{share}, "
-          f"warp launches {launches} [{card_name(device)}]", file=sys.stderr, flush=True)
+          f"{graph}, warp launches {launches} [{card_name(device)}]", file=sys.stderr, flush=True)
     return fps
 
 

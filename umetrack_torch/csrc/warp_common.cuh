@@ -53,6 +53,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace warp {
 
 constexpr int kPix = 4;  // x-adjacent output pixels per thread
@@ -385,11 +387,26 @@ int launch_tiles(const TileLaunch& l) {
   const size_t window = STAGED ? (size_t)kWinRows * kWinCols * sizeof(T) : 0;
   if (window + 256 > 48 * 1024) {
     // more than the 48 KB a block gets without asking (the static part, the
-    // reduction scratch, is under 256 bytes)
-    const cudaError_t e = cudaFuncSetAttribute(
-        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)window);
+    // reduction scratch, is under 256 bytes); asked once per device for both
+    // forms, at the first launch, so that no later launch (one that a CUDA
+    // graph captures) makes the call
+    static std::atomic<unsigned long long> raised{0};  // one bit per device
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
     if (e != cudaSuccess) return (int)e;
+    if (device >= 64) return (int)cudaErrorInvalidDevice;
+    const unsigned long long bit = 1ull << device;
+    if (!(raised.load() & bit)) {
+      const Kernel forms[2] = {tile_kernel<Tag, T, true, STAGED>,
+                               tile_kernel<Tag, T, false, STAGED>};
+      for (const Kernel k : forms) {
+        e = cudaFuncSetAttribute((const void*)k,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)window);
+        if (e != cudaSuccess) return (int)e;
+      }
+      raised.fetch_or(bit);
+    }
   }
   kernel<<<(unsigned)(l.n_crops * tiles), l.threads, window,
            (cudaStream_t)l.stream>>>(

@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from .._device import device_constant
 from . import affine
 
 
@@ -56,14 +57,14 @@ def gen_crop_camera_from_points(
     dtype, device = new_world_to_eye.dtype, new_world_to_eye.device
     mirror_diag = torch.where(
         torch.as_tensor(mirror_img_x, device=device)[..., None],
-        torch.tensor([-1.0, 1.0, 1.0, 1.0], dtype=dtype, device=device),
+        device_constant([-1.0, 1.0, 1.0, 1.0], dtype, device),
         torch.ones(4, dtype=dtype, device=device),
     )
     new_world_to_eye = torch.diag_embed(mirror_diag) @ new_world_to_eye
 
     pts_eye = affine.transform3(new_world_to_eye[..., None, :, :], pts_world)
     z = pts_eye[..., 2]
-    img_size = torch.tensor(image_size, dtype=pts_eye.dtype, device=device)
+    img_size = device_constant(image_size, pts_eye.dtype, device)
     cx_cy = (img_size - 1.0) / 2.0
     safe_z = torch.where(
         pts_eye[..., 2:3].abs() < 1e-6,

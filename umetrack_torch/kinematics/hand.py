@@ -136,10 +136,13 @@ def stack_hand_models(hands) -> HandModel:
 def scaled_hand_model(hand: HandModel, multiplier) -> HandModel:
     """Uniformly scale the rest geometry (``multiplier`` broadcasts over the
     hand's batch dims)."""
-    m = torch.as_tensor(
-        multiplier, dtype=hand.joint_rest_positions.dtype,
-        device=hand.joint_rest_positions.device,
-    )[..., None, None]
+    if isinstance(multiplier, (int, float)):  # as is: no host-to-device copy
+        m = float(multiplier)
+    else:
+        m = torch.as_tensor(
+            multiplier, dtype=hand.joint_rest_positions.dtype,
+            device=hand.joint_rest_positions.device,
+        )[..., None, None]
     return dataclasses.replace(
         hand,
         joint_rest_positions=hand.joint_rest_positions * m,

@@ -31,7 +31,9 @@ tensors take the plain version
 counts its launches in ``.launches``; the windowed one also counts them by
 the form of the kernel that ran in ``.paths`` (``ops/_tiles.py`` holds the
 rules).  The counts are incremented where a kernel is launched
-(:func:`_launch_full`, :func:`_launch_windowed`) and nowhere else.
+(:func:`_launch_full`, :func:`_launch_windowed`) and nowhere else, and a
+CUDA graph that captured launches adds them on each replay
+(``tracker/compiled.py``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,12 @@ version (:func:`~umetrack_torch.ops.resample.bilinear_sample_pool_plain`)
 for CPU tensors; ``warp_pool.launches`` counts kernel launches and
 ``warp_pool.paths`` counts them by the form of the kernel that ran
 (``ops/_tiles.py`` holds the rules); both are incremented where the kernel
-is launched (:func:`_launch`) and nowhere else.
+is launched (:func:`_launch`) and nowhere else, and a CUDA graph that
+captured launches adds them on each replay (``tracker/compiled.py``).
+
+On the CPU an ``src_idx`` outside the pool raises ``IndexError``; on the
+card the range is checked by a device-side assert, with no host wait, and
+an index outside the pool is a CUDA error at the next synchronisation.
 """
 from __future__ import annotations
 
@@ -69,10 +74,17 @@ def _check(images: torch.Tensor, coords: torch.Tensor, src_idx: torch.Tensor):
     m, h, w = images.shape
     if h < 2 or w < 2:
         raise ValueError(f"images must be at least 2 x 2, got {h} x {w}")
-    if src_idx.numel():
-        lo, hi = torch.aminmax(src_idx)  # one kernel; the reads below wait for it
+    if not src_idx.numel():
+        return
+    lo, hi = torch.aminmax(src_idx)
+    if images.device.type == "cpu":
         if int(lo) < 0 or int(hi) >= m:
             raise IndexError(f"src_idx outside [0, {m})")
+    else:
+        # on the card the check stays there: no host wait (a CUDA graph can
+        # capture it), and an index outside the pool fails the device-side
+        # assert, a CUDA error at the next synchronisation
+        torch._assert_async((lo >= 0) & (hi < m), f"src_idx outside [0, {m})")
 
 
 def _launch(images: torch.Tensor, coords: torch.Tensor, src_idx: torch.Tensor) -> torch.Tensor:

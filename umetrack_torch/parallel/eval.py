@@ -1,9 +1,9 @@
 """Batched and sharded sequence evaluation.
 
 Counterpart of ``umetrack_tpu/parallel/eval.py``.  S sequences are tracked
-in lock-step (``track_sequences_batched``: one ``warp_pool`` launch for all
-their frames) and each gets its mean landmark error.  Across processes the
-sequences shard by data index in contiguous blocks
+in lock-step (``track_sequences_batched``, run eagerly: one ``warp_pool``
+launch for all their frames) and each gets its mean landmark error.
+Across processes the sequences shard by data index in contiguous blocks
 (:func:`shard_eval_inputs`, rows ``2i, 2i+1`` of the tracker state go with
 sequence ``i``) and the recurrence keeps each sequence on one rank; the
 ranks of a model group track the same sequences with the weights sharded
@@ -23,7 +23,7 @@ from .._device import resolve_device
 from ..kinematics.hand import HandModel, scaled_hand_model
 from ..models.umetrack import UmeTrackNet
 from ..tracker.crops import landmarks_from_pose
-from ..tracker.tracker import calibrate_sequences_batched, track_sequences_batched
+from ..tracker.tracker import _track_sequences_batched_eager, calibrate_sequences_batched
 from ..tracker.types import CameraRig, FrameObservation, TrackerConfig, TrackState
 from .collectives import gather_blocks
 from .distributed import is_initialized
@@ -63,7 +63,9 @@ def eval_sequences_batched(
     (:func:`shard_eval_inputs`) and the results are global: the data ranks'
     per-sequence blocks gathered in data order, the mean reduced from every
     data rank's masked sum and count."""
-    results, _ = track_sequences_batched(
+    # eager: under a process group the sharded convolutions run collectives,
+    # which a CUDA graph does not capture
+    results, _ = _track_sequences_batched_eager(
         model, config, rigs, seqs, init_state, hand_models_mm, min_num_crops,
         skel_hand_models_mm, device=device,
     )

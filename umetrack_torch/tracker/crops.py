@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from .._device import device_constant
 from ..geometry import affine
 from ..geometry.cameras import arctan_project, fisheye62_distort
 from ..geometry.crop import gen_crop_camera_from_points
@@ -66,7 +67,7 @@ def static_crop_points_local(
     if num_crop_points > 42:
         sets.append(torch.zeros_like(sets[0]))
     local = torch.cat([skin_landmarks(hand_model, a, eye) for a in sets], dim=-2)
-    right = local * torch.tensor([-1.0, 1.0, 1.0], dtype=local.dtype, device=local.device)
+    right = local * device_constant([-1.0, 1.0, 1.0], local.dtype, local.device)
     return torch.stack([local, right], dim=-3)
 
 

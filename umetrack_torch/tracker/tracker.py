@@ -10,6 +10,12 @@ over all frames at once again.  :func:`track_frame` is the streaming form:
 one frame, the state carried by the caller.  Every warp of every frame of a
 call goes through ONE call of the image-pool sampler (``ops/warp_pool.py``).
 
+The three serving entry points (:func:`track_frame`,
+:func:`track_sequence`, :func:`track_sequences_batched`), jitted in the JAX
+package, run on the card as captured CUDA graphs (``compiled.py``): the
+first call per key runs eagerly and captures, later calls replay.  Their
+eager forms are the ``_*_step`` functions; the calibrations stay eager.
+
 Units: the tracker API is mm, the model consumes meters.  Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -36,6 +42,7 @@ from ..ops.resample import (
     fisheye_to_pinhole_coords,
 )
 from ..ops.warp_pool import warp_pool
+from .compiled import CompiledStep
 from .crops import gather_cameras, gen_crop_set, landmarks_from_pose, static_crop_points_local
 from .types import (
     IMAGE_SAMPLERS,
@@ -233,9 +240,12 @@ def _skeleton_inputs(hand_model_mm: HandModel, repeat: int = 1) -> SkeletonInput
     hand_m = scaled_hand_model(hand_model_mm, MM_TO_M)
     axes = hand_m.joint_rotation_axes.reshape(-1, *hand_m.joint_rotation_axes.shape[-2:])
     rest = hand_m.joint_rest_positions.reshape(-1, *hand_m.joint_rest_positions.shape[-2:])
+
+    def repeat_rows(a):  # ``repeat_interleave`` as a copy: no device-side sizes
+        return a[:, None].expand(a.shape[0], repeat, *a.shape[1:]).reshape(-1, *a.shape[1:])
+
     return SkeletonInputs(
-        joint_rotation_axes=axes.repeat_interleave(repeat, dim=0),
-        joint_rest_positions=rest.repeat_interleave(repeat, dim=0),
+        joint_rotation_axes=repeat_rows(axes), joint_rest_positions=repeat_rows(rest),
     )
 
 
@@ -356,58 +366,6 @@ def _track_step(
     return result, TrackState(temporal=new_temporal, valid_history=crop_set.hand_valid)
 
 
-def track_frame(
-    model: UmeTrackNet,
-    config: TrackerConfig,
-    rig: CameraRig,  # fields [N]
-    obs: FrameObservation,  # one frame (no leading axis)
-    state: TrackState,  # leaves [2, ...]
-    hand_model_mm: HandModel,
-    min_num_crops: int = 1,
-    known: bool = True,
-    device=None,
-) -> Tuple[FrameResult, TrackState]:
-    """Single-frame streaming entry point: ``known=True`` tracks with the
-    skeleton of ``hand_model_mm``, ``known=False`` with the scale-predicting
-    head (``predicted_scales`` is set).  Results are ``[2, ...]`` in mm."""
-    device, (rig, obs, state, hand_model_mm) = _on_device(
-        model, device, rig, obs, state, hand_model_mm
-    )
-    return _track_step(
-        model, config, rig, obs, state, hand_model_mm, min_num_crops, known,
-        config.resolved_sampler(device),
-    )
-
-
-@torch.inference_mode()
-def track_sequence(
-    model: UmeTrackNet,
-    config: TrackerConfig,
-    rig: CameraRig,  # fields [N]
-    seq: FrameObservation,  # leaves [T, ...]
-    init_state: TrackState,  # leaves [2, ...]
-    hand_model_mm: HandModel,
-    min_num_crops: int = 1,
-    skel_hand_model_mm: Optional[HandModel] = None,
-    device=None,
-) -> Tuple[FrameResult, TrackState]:
-    """Known-skeleton tracking over a whole sequence: per-frame prep
-    (crops + one pool warp) for all frames, then the recurrent model.
-    Results are ``[T, 2, ...]`` in mm."""
-    device, (rig, seq, init_state, hand_model_mm, skel_hand_model_mm) = _on_device(
-        model, device, rig, seq, init_state, hand_model_mm, skel_hand_model_mm
-    )
-    sampler = config.resolved_sampler(device)
-    crop_sets, crop_images = _prepare_frames(
-        config, rig, seq, hand_model_mm, min_num_crops, sampler
-    )
-    skel_src = hand_model_mm if skel_hand_model_mm is None else skel_hand_model_mm
-    return _model_scan(
-        model, config, crop_sets, crop_images, init_state,
-        _skeleton_inputs(skel_src), torch.arange(2, device=device),
-    )
-
-
 def _prepare_sequences_merged(
     config: TrackerConfig,
     rigs: CameraRig,  # fields [S, N]
@@ -431,7 +389,111 @@ def _prepare_sequences_merged(
     return crop_sets.map(to_scan), to_scan(crop_images)
 
 
-@torch.inference_mode()
+def _sequence_step(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,  # fields [N]
+    seq: FrameObservation,  # leaves [T, ...]
+    init_state: TrackState,  # leaves [2, ...]
+    hand_model_mm: HandModel,
+    min_num_crops: int,
+    skel_hand_model_mm: Optional[HandModel],
+    sampler: str,
+) -> Tuple[FrameResult, TrackState]:
+    """:func:`track_sequence` on inputs already on the model's device."""
+    crop_sets, crop_images = _prepare_frames(
+        config, rig, seq, hand_model_mm, min_num_crops, sampler
+    )
+    skel_src = hand_model_mm if skel_hand_model_mm is None else skel_hand_model_mm
+    return _model_scan(
+        model, config, crop_sets, crop_images, init_state,
+        _skeleton_inputs(skel_src), torch.arange(2, device=crop_images.device),
+    )
+
+
+def _sequences_batched_step(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rigs: CameraRig,  # fields [S, N]
+    seqs: FrameObservation,  # leaves [S, T, ...]
+    init_state: TrackState,  # leaves [2S, ...]
+    hand_models_mm: HandModel,  # [S, ...]
+    min_num_crops: int,
+    skel_hand_models_mm: Optional[HandModel],
+    sampler: str,
+) -> Tuple[FrameResult, TrackState]:
+    """:func:`track_sequences_batched` on inputs already on the model's
+    device."""
+    s = rigs.fx.shape[0]
+    crop_sets_t, crop_images_t = _prepare_sequences_merged(
+        config, rigs, seqs, hand_models_mm, min_num_crops, sampler
+    )
+    skel_src = hand_models_mm if skel_hand_models_mm is None else skel_hand_models_mm
+    hand_idx = torch.arange(2, device=crop_images_t.device).repeat(s)
+    results, final_state = _model_scan(
+        model, config, crop_sets_t, crop_images_t, init_state,
+        _skeleton_inputs(skel_src, repeat=2), hand_idx,
+    )
+    results = results.map(lambda a: a.reshape(a.shape[0], s, 2, *a.shape[2:]))
+    return results, final_state
+
+
+_FRAME = CompiledStep(_track_step)
+_SEQUENCE = CompiledStep(_sequence_step)
+_SEQUENCES_BATCHED = CompiledStep(_sequences_batched_step)
+
+
+def _entry(step, model: UmeTrackNet, device, trees: dict, **static):
+    """``step`` (a :class:`CompiledStep` or its ``eager`` form) on ``trees``
+    moved to ``device`` (outside any captured region), with the sampler the
+    config resolves there."""
+    device, moved = _on_device(model, device, *trees.values())
+    sampler = static["config"].resolved_sampler(device)
+    return step(model, device, dict(zip(trees, moved)), sampler=sampler, **static)
+
+
+def track_frame(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,  # fields [N]
+    obs: FrameObservation,  # one frame (no leading axis)
+    state: TrackState,  # leaves [2, ...]
+    hand_model_mm: HandModel,
+    min_num_crops: int = 1,
+    known: bool = True,
+    device=None,
+) -> Tuple[FrameResult, TrackState]:
+    """Single-frame streaming entry point: ``known=True`` tracks with the
+    skeleton of ``hand_model_mm``, ``known=False`` with the scale-predicting
+    head (``predicted_scales`` is set).  Results are ``[2, ...]`` in mm."""
+    return _entry(
+        _FRAME, model, device, dict(rig=rig, obs=obs, state=state, hand_model_mm=hand_model_mm),
+        config=config, min_num_crops=min_num_crops, known=known,
+    )
+
+
+def track_sequence(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,  # fields [N]
+    seq: FrameObservation,  # leaves [T, ...]
+    init_state: TrackState,  # leaves [2, ...]
+    hand_model_mm: HandModel,
+    min_num_crops: int = 1,
+    skel_hand_model_mm: Optional[HandModel] = None,
+    device=None,
+) -> Tuple[FrameResult, TrackState]:
+    """Known-skeleton tracking over a whole sequence: per-frame prep
+    (crops + one pool warp) for all frames, then the recurrent model.
+    Results are ``[T, 2, ...]`` in mm."""
+    return _entry(
+        _SEQUENCE, model, device,
+        dict(rig=rig, seq=seq, init_state=init_state, hand_model_mm=hand_model_mm,
+             skel_hand_model_mm=skel_hand_model_mm),
+        config=config, min_num_crops=min_num_crops,
+    )
+
+
 def track_sequences_batched(
     model: UmeTrackNet,
     config: TrackerConfig,
@@ -446,22 +508,30 @@ def track_sequences_batched(
     """Track S sequences in lock-step: the (S, T) prep runs at once with
     ONE pool warp over all S*T*2*V warps, and the recurrent model runs with
     the S sequences merged into 2S hand rows.  Results are ``[T, S, 2, ...]``."""
-    device, (rigs, seqs, init_state, hand_models_mm, skel_hand_models_mm) = _on_device(
-        model, device, rigs, seqs, init_state, hand_models_mm, skel_hand_models_mm
-    )
-    sampler = config.resolved_sampler(device)
-    s = rigs.fx.shape[0]
-    crop_sets_t, crop_images_t = _prepare_sequences_merged(
-        config, rigs, seqs, hand_models_mm, min_num_crops, sampler
-    )
-    skel_src = hand_models_mm if skel_hand_models_mm is None else skel_hand_models_mm
-    hand_idx = torch.arange(2, device=device).repeat(s)
-    results, final_state = _model_scan(
-        model, config, crop_sets_t, crop_images_t, init_state,
-        _skeleton_inputs(skel_src, repeat=2), hand_idx,
-    )
-    results = results.map(lambda a: a.reshape(a.shape[0], s, 2, *a.shape[2:]))
-    return results, final_state
+    return _entry(_SEQUENCES_BATCHED, model, device, dict(
+        rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
+        skel_hand_models_mm=skel_hand_models_mm,
+    ), config=config, min_num_crops=min_num_crops)
+
+
+def _track_sequences_batched_eager(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rigs: CameraRig,
+    seqs: FrameObservation,
+    init_state: TrackState,
+    hand_models_mm: HandModel,
+    min_num_crops: int = 1,
+    skel_hand_models_mm: Optional[HandModel] = None,
+    device=None,
+) -> Tuple[FrameResult, TrackState]:
+    """:func:`track_sequences_batched` run eagerly, never captured: for
+    callers inside process-group collectives, which a CUDA graph cannot
+    capture, and for counting FLOPs (a replay passes no dispatcher)."""
+    return _entry(_SEQUENCES_BATCHED.eager, model, device, dict(
+        rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
+        skel_hand_models_mm=skel_hand_models_mm,
+    ), config=config, min_num_crops=min_num_crops)
 
 
 def _first_n_valid_mean(
