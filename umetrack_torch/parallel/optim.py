@@ -3,9 +3,8 @@
 ``optax.warmup_cosine_decay_schedule`` (``umetrack_tpu/apps/train.py``,
 ``parallel/resident.py``).
 
-The Adam update itself is ``torch.optim.AdamW``'s (eps 1e-8, the same
-update as optax's in exact arithmetic); what is written out here is what
-differs from PyTorch's defaults:
+The update is written out in optax's order of operations (eps 1e-8), with
+what differs from ``torch.optim.AdamW``'s defaults:
 
 - the clip is optax's: the gradients are scaled by ``max / ||g||`` only when
   the global norm ``||g||`` reaches ``max`` (``clip_grad_norm_`` adds 1e-6 to
@@ -29,10 +28,15 @@ differs from PyTorch's defaults:
   squares once, plus the sharded leaves' squares summed over the model
   group, which is what ``optax.clip_by_global_norm`` computes on sharded
   arrays.  Adam's moments and the weight decay work on the slices as they
-  are.
+  are;
+- the update count, the scheduled learning rate and Adam's bias
+  corrections live on the device, so a captured CUDA graph of a train step
+  (``tracker/compiled.py``) replays the update as it ran: no value of the
+  step is read on the host.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Iterable, List, Optional, Sequence, Union
 
@@ -41,32 +45,77 @@ import torch.distributed as dist
 
 from .distributed import is_initialized
 
-Schedule = Callable[[int], float]
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmupCosineDecay:
+    """optax's ``warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps``, then a cosine from
+    ``peak_value`` to ``end_value`` over the remaining ``decay_steps -
+    warmup_steps``, constant after.  Called with a Python int it returns a
+    float (for logs and tests); with a tensor count it returns a float64
+    tensor computed on the count's device, which a CUDA graph can replay."""
+
+    init_value: float
+    peak_value: float
+    warmup_steps: int
+    decay_steps: int
+    end_value: float = 0.0
+
+    def __post_init__(self):
+        if not self.decay_steps - self.warmup_steps > 0:
+            raise ValueError(
+                f"the cosine decay needs positive decay_steps - warmup_steps, got "
+                f"{self.decay_steps} - {self.warmup_steps}"
+            )
+
+    @property
+    def alpha(self) -> float:
+        return 0.0 if self.peak_value == 0.0 else self.end_value / self.peak_value
+
+    def __call__(self, count):
+        if isinstance(count, torch.Tensor):
+            return self._on_device(count)
+        warmup, span = self.warmup_steps, self.decay_steps - self.warmup_steps
+        if count < warmup:
+            frac = 1.0 - min(max(count, 0), warmup) / warmup
+            return (self.init_value - self.peak_value) * frac + self.peak_value
+        t = min(count - warmup, span)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / span))
+        return self.peak_value * ((1.0 - self.alpha) * cosine + self.alpha)
+
+    def _on_device(self, count: torch.Tensor) -> torch.Tensor:
+        """The same arithmetic in float64 tensor ops, both branches
+        computed and one selected (no host read of the count)."""
+        c = count.to(torch.float64)
+        warmup, span = self.warmup_steps, self.decay_steps - self.warmup_steps
+        frac = 1.0 - torch.clamp(c, 0, warmup) / max(warmup, 1)
+        warm = (self.init_value - self.peak_value) * frac + self.peak_value
+        t = torch.clamp(c - warmup, max=span)
+        cosine = 0.5 * (1.0 + torch.cos(math.pi * t / span))
+        decayed = self.peak_value * ((1.0 - self.alpha) * cosine + self.alpha)
+        return torch.where(c < warmup, warm, decayed)
+
+
+@dataclasses.dataclass(frozen=True)
+class Constant:
+    """A constant learning rate in the schedule's two forms."""
+
+    value: float
+
+    def __call__(self, count):
+        if isinstance(count, torch.Tensor):
+            return torch.full_like(count, self.value, dtype=torch.float64)
+        return self.value
 
 
 def warmup_cosine_decay_schedule(
     init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
     end_value: float = 0.0,
-) -> Schedule:
-    """optax's: linear from ``init_value`` to ``peak_value`` over
-    ``warmup_steps``, then a cosine from ``peak_value`` to ``end_value`` over
-    the remaining ``decay_steps - warmup_steps``, constant after."""
-    if not decay_steps - warmup_steps > 0:
-        raise ValueError(
-            f"the cosine decay needs positive decay_steps - warmup_steps, got "
-            f"{decay_steps} - {warmup_steps}"
-        )
-    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
-
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            frac = 1.0 - min(max(count, 0), warmup_steps) / warmup_steps
-            return (init_value - peak_value) * frac + peak_value
-        t = min(count - warmup_steps, decay_steps - warmup_steps)
-        cosine = 0.5 * (1.0 + math.cos(math.pi * t / (decay_steps - warmup_steps)))
-        return peak_value * ((1.0 - alpha) * cosine + alpha)
-
-    return schedule
+) -> WarmupCosineDecay:
+    """optax's schedule of that name (see :class:`WarmupCosineDecay`)."""
+    return WarmupCosineDecay(init_value, peak_value, warmup_steps, decay_steps, end_value)
 
 
 @torch.no_grad()
@@ -103,13 +152,22 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
     return norm
 
 
-class ClippedAdamW(torch.optim.AdamW):
+class ClippedAdamW(torch.optim.Optimizer):
     """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(learning_rate,
     weight_decay))``; ``max_grad_norm=None`` leaves the clip out (plain
     ``optax.adamw``).  ``learning_rate`` is a float or a schedule of the
-    update count; ``count`` is the number of updates made; ``mesh`` is the
-    mesh the parameters were placed on (needed once a leaf is sharded);
-    ``global_norm`` is the last step's gradient norm (before the clip)."""
+    update count taking a Python int and a tensor (:class:`WarmupCosineDecay`,
+    :class:`Constant`); ``mesh`` is the mesh the parameters were placed on
+    (needed once a leaf is sharded).
+
+    Capturable: the update count (``step_count``), the learning rate, Adam's
+    bias corrections and the clip are device tensors and every update is a
+    device op, so a CUDA graph of a whole train step replays the optimizer
+    as it ran.  :meth:`prepare` makes the state (moments, count, the
+    gradients) at fixed addresses before a capture; :meth:`update` is the
+    device work alone, :meth:`step` adds the host's mirror ``count`` (the
+    number of updates made, never read by an update).  ``global_norm`` is
+    the last update's gradient norm before the clip (a device tensor)."""
 
     def __init__(
         self, params: Iterable[torch.nn.Parameter],
@@ -117,22 +175,59 @@ class ClippedAdamW(torch.optim.AdamW):
         max_grad_norm: Optional[float] = 1.0, mesh=None,
     ):
         self.schedule: Schedule = (
-            learning_rate if callable(learning_rate) else (lambda count: learning_rate)
+            learning_rate if callable(learning_rate) else Constant(float(learning_rate))
         )
         self.max_grad_norm = max_grad_norm
         self.mesh = mesh
         self.count = 0
+        self.step_count: Optional[torch.Tensor] = None
         self.global_norm: Optional[torch.Tensor] = None
-        super().__init__(
-            params, lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=weight_decay,
-        )
+        super().__init__(params, dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay))
+
+    def _params(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @torch.no_grad()
+    def prepare(self) -> None:
+        """Make what an update writes, where it is missing: a zero gradient
+        for each parameter, Adam's moments, the update count and the norm.
+        Each later update writes into these tensors in place."""
+        params = self._params()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if not self.state[p]:
+                self.state[p] = dict(exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+        if self.step_count is None:
+            device = params[0].device
+            self.step_count = torch.full((), float(self.count), dtype=torch.float64, device=device)
+            self.global_norm = torch.zeros((), device=device)
+
+    def capture_key(self) -> tuple:
+        """What a captured update bakes in: the hyperparameters, the
+        schedule and the data pointers of everything it reads and writes."""
+        hyper = tuple((g["betas"], g["eps"], g["weight_decay"], len(g["params"])) for g in self.param_groups)
+        tensors = [self.step_count, self.global_norm]
+        for p in self._params():
+            tensors += [p, p.grad, *self.state[p].values()]
+        return (hyper, self.schedule, self.max_grad_norm,
+                tuple(None if t is None else t.data_ptr() for t in tensors))
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise NotImplementedError("ClippedAdamW takes no closure")
-        params = [p for g in self.param_groups for p in g["params"] if p.grad is not None]
+        self.prepare()
+        self.update()
+        self.count += 1
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """One update on the device, host state untouched: the gradients
+        summed over the ranks under a process group, the clip, then AdamW
+        in optax's order of operations, at the learning rate of the count of
+        updates made so far."""
+        params = self._params()
         sharded = [p.grad for p in params if getattr(p, "partition_dim", None) is not None]
         grads = [p.grad for p in params if getattr(p, "partition_dim", None) is None]
         mesh = self.mesh
@@ -147,10 +242,31 @@ class ClippedAdamW(torch.optim.AdamW):
         elif is_initialized():
             all_reduce_sum_(grads, None if mesh is None else mesh.data_group)
         if self.max_grad_norm is not None:
-            self.global_norm = clip_by_global_norm_(
-                grads, self.max_grad_norm, sharded, None if mesh is None else mesh.model_group)
-        lr = float(self.schedule(self.count))
+            self.global_norm.copy_(clip_by_global_norm_(
+                grads, self.max_grad_norm, sharded, None if mesh is None else mesh.model_group))
+
+        neg_lr = -self.schedule(self.step_count).to(torch.float32)
+        self.step_count.add_(1.0)
         for group in self.param_groups:
-            group["lr"] = lr
-        super().step()
-        self.count += 1
+            b1, b2 = group["betas"]
+            ps = group["params"]
+            gs = [p.grad for p in ps]
+            mu = [self.state[p]["exp_avg"] for p in ps]
+            nu = [self.state[p]["exp_avg_sq"] for p in ps]
+            # optax: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(gs, 1.0 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(gs, gs), 1.0 - b2))
+            # bias corrections in float64, rounded once (optax casts them to the moments' dtype)
+            bc1 = (1.0 - torch.pow(b1, self.step_count)).to(torch.float32)
+            bc2 = (1.0 - torch.pow(b2, self.step_count)).to(torch.float32)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            upd = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(upd, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, torch._foreach_mul(ps, group["weight_decay"]))
+            torch._foreach_mul_(upd, neg_lr)
+            torch._foreach_add_(ps, upd)

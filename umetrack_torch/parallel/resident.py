@@ -7,13 +7,17 @@ poses, ``apps/train.py::prepare_tracker_sequences``); the supervised terms
 and the TBPTT window are ``parallel/train.py``'s.  The sequences and window
 starts are drawn from a numpy generator seeded as in the JAX package, so
 with ``augment=False`` a run takes the same batches in both packages; the
-augmentation draws from a ``torch.Generator`` on the corpus's device.
+augmentation draws from a ``torch.Generator`` on the corpus's device.  On
+the card the train step, the eval and the diagnosis are captured CUDA
+graphs, the counterpart of their ``jax.jit``: the window start is a device
+input, so one graph serves every start, and the corpus is read where it
+lies.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,14 +28,17 @@ from ..data import bundles
 from ..kinematics.hand import HandModel, scaled_hand_model
 from ..kinematics.skinning import skin_landmarks
 from ..models.umetrack import FrameInputs, SkeletonInputs, TemporalState, UmeTrackNet
+from ..tracker.compiled import CompiledStep
 from .optim import ClippedAdamW, warmup_cosine_decay_schedule
 from .train import (
     LossWeights,
     TemporalTrainBatch,
     TrainState,
+    _update,
     create_train_state,
+    run_step,
     running_stats_kept,
-    temporal_train_step,
+    temporal_loss_fn,
 )
 
 MM_TO_M = 0.001
@@ -127,16 +134,25 @@ def corpus_from_arrays(
     )
 
 
+def _rows2(a: torch.Tensor) -> torch.Tensor:
+    """Each leading row twice in a row (``repeat_interleave(2, 0)``, as a
+    copy: no device-side sizes)."""
+    return a[:, None].expand(a.shape[0], 2, *a.shape[1:]).reshape(2 * a.shape[0], *a.shape[1:])
+
+
 def gather_window(
     corpus: ResidentCorpus,
     seq_idx: torch.Tensor,  # [Bs] int64 on the corpus's device
-    t0: int,
+    t0: Union[int, torch.Tensor],  # the window's start: an int or a 0-d int tensor
     window: int,
     generator: Optional[torch.Generator] = None,
 ) -> TemporalTrainBatch:
     """A TBPTT batch gathered on the device: rows are (sequence, hand)
     pairs in the merged layout (row 2*s + hand, ``hand_idx`` = [0, 1, 0, 1,
-    ...]), frames ``t0 .. t0 + window - 1``.
+    ...]), frames ``t0 .. t0 + window - 1``, with ``t0`` clamped to
+    ``[0, T - window]`` as JAX's ``dynamic_slice`` clamps it.  A tensor
+    ``t0`` is read on the device only, so one captured step serves every
+    window start.
 
     With a ``generator``, the batch is augmented: each sequence's window is
     reversed in time with probability 0.5, and each row's images get a gain
@@ -146,12 +162,16 @@ def gather_window(
     k = window
     bs = seq_idx.shape[0]
     device = corpus.images.device
+    n_frames = corpus.n_frames
     reverse = None
     if generator is not None:
         reverse = torch.rand((bs,), generator=generator, device=device) < 0.5
+    start = torch.clamp(torch.as_tensor(t0, device=device), 0, n_frames - k)
+    # flat (sequence, frame) rows of the window: [Bs * k]
+    flat_idx = (seq_idx[:, None] * n_frames + start + torch.arange(k, device=device)).reshape(-1)
 
     def take(a):  # [N, T, ...] -> [Bs, k, ...]
-        win = a.index_select(0, seq_idx)[:, t0:t0 + k]
+        win = a.flatten(0, 1).index_select(0, flat_idx).reshape(bs, k, *a.shape[2:])
         if reverse is not None:
             win = torch.where(reverse.reshape(-1, *[1] * (win.dim() - 1)), win.flip(1), win)
         return win
@@ -182,7 +202,7 @@ def gather_window(
         hand_idx=torch.arange(2, dtype=torch.int32, device=device).repeat(bs)[:, None].expand(2 * bs, k),
         use_memory=use_memory,
     )
-    hand_rows = corpus.hand.map(lambda a: a.index_select(0, seq_idx).repeat_interleave(2, dim=0))
+    hand_rows = corpus.hand.map(lambda a: _rows2(a.index_select(0, seq_idx)))
     return TemporalTrainBatch(
         frames=frames,
         skeleton=SkeletonInputs(
@@ -192,24 +212,44 @@ def gather_window(
         gt_joint_angles=rows(take(corpus.angles)),
         gt_wrist_world=rows(take(corpus.wrists_m)),
         hand=hand_rows,
-        gt_scales=corpus.scales.index_select(0, seq_idx).repeat_interleave(2),
+        gt_scales=_rows2(corpus.scales.index_select(0, seq_idx)),
         valid=valid,
     )
+
+
+def _resident_update(model: UmeTrackNet, seq_idx: torch.Tensor, t0: torch.Tensor,
+                     corpus: ResidentCorpus, optimizer: ClippedAdamW, weights: LossWeights,
+                     window: int, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """:func:`resident_train_step`'s device work: gather, loss, backward,
+    update."""
+    batch = gather_window(corpus, seq_idx, t0, window, generator)
+    total, metrics = temporal_loss_fn(model, batch, weights)
+    _update(total, optimizer)
+    return metrics
+
+
+_RESIDENT = CompiledStep(_resident_update, training=True)
 
 
 def resident_train_step(
     state: TrainState,
     corpus: ResidentCorpus,
     seq_idx: torch.Tensor,
-    t0: int,
+    t0: Union[int, torch.Tensor],
     weights: LossWeights,
     window: int,
     generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """One TBPTT step on a window gathered from the corpus (augmented when
-    a ``generator`` is given); ``state`` is updated in place."""
-    batch = gather_window(corpus, seq_idx, t0, window, generator)
-    return temporal_train_step(state, batch, weights)
+    a ``generator`` is given); ``state`` is updated in place.  On the card
+    with no process group the step is one captured graph for every
+    ``seq_idx`` and ``t0`` (``parallel/train.py::run_step``); the corpus
+    stays where it lies."""
+    device = corpus.images.device
+    return run_step(
+        _RESIDENT, state, dict(seq_idx=seq_idx, t0=torch.as_tensor(t0, device=device)),
+        dict(corpus=corpus), weights=weights, window=window, generator=generator,
+    )
 
 
 def _eval_rollout(model: UmeTrackNet, batch: TemporalTrainBatch):
@@ -225,14 +265,9 @@ def _eval_rollout(model: UmeTrackNet, batch: TemporalTrainBatch):
     return torch.stack(angles), torch.stack(wrists)
 
 
-@torch.no_grad()
-def resident_eval_mpjpe(
-    model: UmeTrackNet, corpus: ResidentCorpus, seq_idx: torch.Tensor, t0: int, window: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(MPJPE mm, MPJPA deg) of the known-skeleton head in eval mode over a
-    window of the given sequences: the training domain's mirror of the
-    protocol metric (predicted wrist AND angles)."""
-    model.eval()
+def _eval_mpjpe(model: UmeTrackNet, seq_idx: torch.Tensor, t0: torch.Tensor, corpus: ResidentCorpus,
+                window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`resident_eval_mpjpe`'s device work."""
     batch = gather_window(corpus, seq_idx, t0, window)
     angles_t, wrists_t = _eval_rollout(model, batch)
     gt_a = batch.gt_joint_angles.transpose(0, 1)
@@ -244,6 +279,44 @@ def resident_eval_mpjpe(
     dang = (angles_t - gt_a).abs()[..., :20]
     mpjpa_deg = torch.rad2deg(torch.sum(dang * w) / torch.clamp(w.sum() * 20, min=1.0))
     return mpjpe_mm, mpjpa_deg
+
+
+_EVAL_MPJPE = CompiledStep(_eval_mpjpe)
+
+
+def _window_call(step: CompiledStep, model: UmeTrackNet, corpus: ResidentCorpus,
+                 seq_idx: torch.Tensor, t0: Union[int, torch.Tensor], **static):
+    """``step`` on a window of the resident corpus: a captured graph on the
+    card (one for every ``seq_idx`` and ``t0`` of a shape)."""
+    device = corpus.images.device
+    return step(model, device, dict(seq_idx=seq_idx, t0=torch.as_tensor(t0, device=device)),
+                dict(corpus=corpus), **static)
+
+
+def resident_eval_mpjpe(
+    model: UmeTrackNet, corpus: ResidentCorpus, seq_idx: torch.Tensor,
+    t0: Union[int, torch.Tensor], window: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(MPJPE mm, MPJPA deg) of the known-skeleton head in eval mode over a
+    window of the given sequences: the training domain's mirror of the
+    protocol metric (predicted wrist AND angles)."""
+    model.eval()
+    return _window_call(_EVAL_MPJPE, model, corpus, seq_idx, t0, window=window)
+
+
+def draw_window(rng: np.random.Generator, n_sequences: int, seqs_per_batch: int, n_starts: int,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A step's (sequence indices [Bs], window start) drawn on the host in
+    the JAX package's order (``choice``, then ``integers``) and sent to
+    ``device`` in one copy that does not wait for the device's queue
+    (pinned memory)."""
+    idx = rng.choice(n_sequences, size=seqs_per_batch, replace=n_sequences < seqs_per_batch)
+    t0 = rng.integers(0, n_starts)
+    host = torch.from_numpy(np.append(idx, t0).astype(np.int64))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    both = host.to(device, non_blocking=True)
+    return both[:-1], both[-1]
 
 
 def run_resident_training(
@@ -288,10 +361,7 @@ def run_resident_training(
     history = []
     t_start = time.perf_counter()
     for step in range(num_steps):
-        seq_idx = torch.as_tensor(
-            rng.choice(n, size=seqs_per_batch, replace=n < seqs_per_batch), device=device
-        )
-        t0 = int(rng.integers(0, t - k + 1))
+        seq_idx, t0 = draw_window(rng, n, seqs_per_batch, t - k + 1, device)
         metrics = resident_train_step(state, corpus, seq_idx, t0, weights, k, generator)
         if step % log_every == 0 or step == num_steps - 1:
             m = {key: float(v) for key, v in metrics.items()}
@@ -311,21 +381,12 @@ def run_resident_training(
     return state, history
 
 
-@torch.no_grad()
-def resident_diagnose(
-    model: UmeTrackNet, corpus: ResidentCorpus, seq_idx: torch.Tensor, t0: int, window: int,
-    bn_train: bool = False,
-) -> Dict[str, float]:
-    """Error decomposition on a window: which term carries the MPJPE
-    (predicted angles with the GT wrist, the predicted wrist with GT angles,
-    the wrist's translation and rotation) and, with ``bn_train``, whether
-    BatchNorm's batch statistics move it (the running stats are left as
-    they were)."""
+def _diagnose(model: UmeTrackNet, seq_idx: torch.Tensor, t0: torch.Tensor, corpus: ResidentCorpus,
+              window: int) -> Dict[str, torch.Tensor]:
+    """:func:`resident_diagnose`'s device work, in the mode the caller set."""
     batch = gather_window(corpus, seq_idx, t0, window)
-    model.train(bn_train)
     with running_stats_kept(model):
         angles_t, wrists_t = _eval_rollout(model, batch)
-    model.eval()
     gt_a = batch.gt_joint_angles.transpose(0, 1)
     gt_w = batch.gt_wrist_world.transpose(0, 1)
     w = batch.valid.transpose(0, 1).to(torch.float32)
@@ -335,7 +396,7 @@ def resident_diagnose(
         err = torch.linalg.vector_norm(
             skin_landmarks(batch.hand, a, wr) - skin_landmarks(batch.hand, gt_a, gt_w), dim=-1
         )
-        return float(torch.sum(err.mean(dim=-1) * w) / wsum * 1e3)
+        return torch.sum(err.mean(dim=-1) * w) / wsum * 1e3
 
     t_err = torch.linalg.vector_norm(wrists_t[..., :3, 3] - gt_w[..., :3, 3], dim=-1)
     r_rel = wrists_t[..., :3, :3].transpose(-1, -2) @ gt_w[..., :3, :3]
@@ -345,6 +406,26 @@ def resident_diagnose(
         "mpjpe_full_mm": mpjpe(angles_t, wrists_t),
         "mpjpe_angles_only_mm": mpjpe(angles_t, gt_w),
         "mpjpe_wrist_only_mm": mpjpe(gt_a, wrists_t),
-        "wrist_trans_mm": float(torch.sum(t_err * w) / wsum * 1e3),
-        "wrist_rot_deg": float(torch.sum(rot_deg * w) / wsum),
+        "wrist_trans_mm": torch.sum(t_err * w) / wsum * 1e3,
+        "wrist_rot_deg": torch.sum(rot_deg * w) / wsum,
     }
+
+
+_DIAGNOSE = CompiledStep(_diagnose)
+
+
+def resident_diagnose(
+    model: UmeTrackNet, corpus: ResidentCorpus, seq_idx: torch.Tensor,
+    t0: Union[int, torch.Tensor], window: int, bn_train: bool = False,
+) -> Dict[str, float]:
+    """Error decomposition on a window: which term carries the MPJPE
+    (predicted angles with the GT wrist, the predicted wrist with GT angles,
+    the wrist's translation and rotation) and, with ``bn_train``, whether
+    BatchNorm's batch statistics move it (the running stats are left as
+    they were).  The values are read on the host after the step."""
+    model.train(bn_train)
+    try:
+        terms = _window_call(_DIAGNOSE, model, corpus, seq_idx, t0, window=window)
+    finally:
+        model.eval()
+    return {name: float(v) for name, v in terms.items()}

@@ -29,6 +29,13 @@ statistics and updates its running stats in place, flax's way
 No activation checkpointing: ``torch.utils.checkpoint`` runs the forward
 again in backward and would update the running stats a second time.
 
+On the card with no process group, :func:`train_step` and
+:func:`temporal_train_step` are captured CUDA graphs, the counterpart of
+their ``jax.jit`` (:func:`run_step`, ``tracker/compiled.py``): the first
+call of a key runs eagerly and captures, later calls replay the forward,
+the backward and the optimizer's update.  Under a process group they run
+eagerly (gloo's collectives cannot be captured).
+
 Under a ``torch.distributed`` process group each rank holds a block of the
 global batch, and the step computes the JAX step over its mesh: every
 normalising count (valid rows, valid windows, scale rows) is summed over
@@ -58,8 +65,8 @@ from ..geometry import affine
 from ..kinematics.hand import HandModel, scaled_hand_model
 from ..kinematics.skinning import skin_landmarks
 from ..models.backbone import BatchNorm
-from ..models.components import gen_rigid_points
 from ..models.umetrack import FrameInputs, SkeletonInputs, TemporalState, UmeTrackNet, make_model
+from ..tracker.compiled import CompiledStep
 from .distributed import is_initialized
 from .mesh import data_group_of
 from .optim import ClippedAdamW
@@ -168,9 +175,9 @@ def _global_metrics(metrics: Dict[str, torch.Tensor], group=None) -> Dict[str, t
 
 
 def _rigid_points(model: UmeTrackNet, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(
-        gen_rigid_points(model.config.n_wrist_rigid_pts), dtype=like.dtype, device=like.device
-    )
+    """The canonical wrist rigid points, from the wrist decoder's buffer
+    (on the device already: no copy from host memory inside a step)."""
+    return model.regressor_k.rigid_points.to(like.dtype)
 
 
 def _x_mirrored(wrist: torch.Tensor, hand_idx: torch.Tensor) -> torch.Tensor:
@@ -372,22 +379,60 @@ def temporal_loss_fn(
     return total, _global_metrics(metrics, group)
 
 
-def _apply_grads(state: TrainState, total: torch.Tensor) -> None:
-    state.optimizer.zero_grad(set_to_none=True)
+def _update(total: torch.Tensor, optimizer: ClippedAdamW) -> None:
+    """Backward into the gradients ``optimizer.prepare`` made, zeroed in
+    place, then the optimizer's device update."""
+    optimizer.zero_grad(set_to_none=False)
     total.backward()
-    state.optimizer.step()
+    optimizer.update()
+
+
+def _train_update(model: UmeTrackNet, batch: TrainBatch, optimizer: ClippedAdamW,
+                  weights: LossWeights) -> Dict[str, torch.Tensor]:
+    """:func:`train_step`'s device work: loss, backward, update."""
+    total, metrics = loss_fn(model, batch, weights)
+    _update(total, optimizer)
+    return metrics
+
+
+def _temporal_update(model: UmeTrackNet, batch: TemporalTrainBatch, optimizer: ClippedAdamW,
+                     weights: LossWeights) -> Dict[str, torch.Tensor]:
+    """:func:`temporal_train_step`'s device work."""
+    total, metrics = temporal_loss_fn(model, batch, weights)
+    _update(total, optimizer)
+    return metrics
+
+
+_TRAIN = CompiledStep(_train_update, training=True)
+_TEMPORAL = CompiledStep(_temporal_update, training=True)
+
+
+def run_step(step: CompiledStep, state: TrainState, inputs: dict, resident: Optional[dict] = None,
+             eager: bool = False, **static) -> Dict[str, torch.Tensor]:
+    """One optimizer step through ``step``: on a CUDA device with no
+    process group a captured graph (the first call of a key runs eagerly
+    and captures), else eagerly (gloo's collectives cannot be captured;
+    ``eager`` asks for it).  The model goes to train mode and the
+    optimizer's state is made BEFORE the key is read; the host's counts
+    move after the call, which a replay does not run."""
+    model, optimizer = state.model, state.optimizer
+    model.train()
+    optimizer.prepare()
+    device = next(model.parameters()).device
+    run = step.eager if eager or is_initialized() else step
+    metrics = run(model, device, inputs, resident, optimizer=optimizer, **static)
+    optimizer.count += 1
     state.step += 1
+    return metrics
 
 
 def train_step(
     state: TrainState, batch: TrainBatch, weights: LossWeights = LossWeights()
 ) -> Dict[str, torch.Tensor]:
     """One optimizer step on a single-frame batch; ``state`` is updated in
-    place.  Returns the metrics (device tensors: reading one waits for the
-    step)."""
-    total, metrics = loss_fn(state.model, batch, weights)
-    _apply_grads(state, total)
-    return metrics
+    place (a graph replay on the card, see :func:`run_step`).  Returns the
+    metrics (device tensors: reading one waits for the step)."""
+    return run_step(_TRAIN, state, dict(batch=batch), weights=weights)
 
 
 def temporal_train_step(
@@ -395,9 +440,7 @@ def temporal_train_step(
 ) -> Dict[str, torch.Tensor]:
     """One TBPTT optimizer step over a K-frame window (see
     :func:`train_step`)."""
-    total, metrics = temporal_loss_fn(state.model, batch, weights)
-    _apply_grads(state, total)
-    return metrics
+    return run_step(_TEMPORAL, state, dict(batch=batch), weights=weights)
 
 
 def synthetic_train_batch(rng_seed: int, batch: int, hand: HandModel, device=None) -> TrainBatch:

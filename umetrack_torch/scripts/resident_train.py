@@ -43,6 +43,7 @@ from ..parallel import (
 from ..parallel.resident import (
     ResidentCorpus,
     corpus_from_arrays,
+    draw_window,
     resident_diagnose,
     resident_eval_mpjpe,
     resident_train_step,
@@ -280,11 +281,7 @@ def _probe_loop(model, corpus, n_probe, args, weights, log_fn):
     history = []
     t_start = time.perf_counter()
     for step in range(args.steps):
-        seq_idx = torch.as_tensor(
-            rng.choice(n_probe, size=args.seqs_per_batch, replace=n_probe < args.seqs_per_batch),
-            device=device,
-        )
-        t0 = int(rng.integers(0, t - k + 1))
+        seq_idx, t0 = draw_window(rng, n_probe, args.seqs_per_batch, t - k + 1, device)
         metrics = resident_train_step(state, corpus, seq_idx, t0, weights, k)
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {kk: float(v) for kk, v in metrics.items()}

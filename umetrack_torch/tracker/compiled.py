@@ -1,5 +1,6 @@
-"""Captured CUDA graphs of the tracker's steps: the port's counterpart of
-the JAX tracker's ``jax.jit``.
+"""Captured CUDA graphs of the port's steps: the counterpart of the JAX
+package's ``jax.jit`` (the tracker's entry points and calibrations, the
+batched evals, the train steps, the resident trainer's steps).
 
 A jitted JAX step is compiled once for its static arguments and its input
 shapes, and every later call dispatches that one program without the host
@@ -25,6 +26,15 @@ would replay TF32 with it off), the model's train / eval mode and the data
 pointers of its parameters and buffers (a model whose tensors were replaced
 recaptures; a ``load_state_dict`` in place keeps the pointers, and the
 replay reads the new values).
+
+A training step (``CompiledStep(fn, training=True)``) captures its
+forward, backward and optimizer update in one graph.  What it writes in
+place is made before the capture and stays at its address: the gradients
+and Adam's state (``parallel/optim.py::ClippedAdamW.prepare``), the
+BatchNorm running stats; its key adds the optimizer's state and the data
+pointers of the resident trees it reads where they lie (a corpus on the
+device), and a ``torch.Generator`` among its static arguments is registered
+with the graph, so each replay draws on from the generator's state.
 
 The graphs of all steps share one cache of the last :data:`CAPACITY` keys;
 an evicted graph is reset, which hands its memory pool back to PyTorch's
@@ -62,7 +72,7 @@ def backend_flags() -> tuple:
     return (
         cuda.allow_tf32, cudnn.allow_tf32, cudnn.enabled, cudnn.deterministic, cudnn.benchmark,
         cuda.allow_bf16_reduced_precision_reduction, cuda.allow_fp16_reduced_precision_reduction,
-        torch.get_float32_matmul_precision(),
+        torch.get_float32_matmul_precision(), torch.are_deterministic_algorithms_enabled(),
     )
 
 
@@ -170,12 +180,16 @@ class CudaGraphs:
         return device.type == "cuda"
 
     @staticmethod
-    def capture(run: Callable[[], Any], device: torch.device):
+    def capture(run: Callable[[], Any], device: torch.device, *generators: torch.Generator):
         """(graph, outputs, bytes of its pool) of ``run()`` captured on a
-        side stream.  ``torch.cuda.graph`` empties the allocator's cache as
-        it starts; done first here, the reserved bytes before and after the
-        capture differ by the graph's private pool."""
+        side stream, with ``generators`` registered so that each replay
+        draws on from their state as an eager call would.
+        ``torch.cuda.graph`` empties the allocator's cache as it starts;
+        done first here, the reserved bytes before and after the capture
+        differ by the graph's private pool."""
         graph = torch.cuda.CUDAGraph()
+        for generator in generators:
+            graph.register_generator_state(generator)
         with torch.cuda.device(device):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -208,6 +222,7 @@ class Captured:
 
 
 _CACHE: "collections.OrderedDict[tuple, Captured]" = collections.OrderedDict()
+CAPTURES: "collections.Counter[str]" = collections.Counter()  # captures made, by step
 
 
 def cached() -> List[Captured]:
@@ -222,58 +237,84 @@ def release() -> None:
         _CACHE.popitem(last=False)[1].graph.reset()
 
 
+def _state_key(static: Dict[str, Any], resident: Dict[str, Any]) -> tuple:
+    """What a capture reads and writes in place beside the model: the
+    optimizer's state (:meth:`ClippedAdamW.capture_key`) and the resident
+    trees (their structure, shapes and data pointers: they are used where
+    they lie, never copied)."""
+    optimizers = tuple(v.capture_key() for _, v in sorted(static.items()) if hasattr(v, "capture_key"))
+    leaves = _leaves(resident)
+    return optimizers, _signature(resident), tuple(t.data_ptr() for t in leaves)
+
+
 class CompiledStep:
-    """``fn(model, **inputs, **static)`` compiled per key, as ``jax.jit``
-    compiles a step with static arguments (see the module's docstring).
+    """``fn(model, **inputs, **resident, **static)`` compiled per key, as
+    ``jax.jit`` compiles a step with static arguments (see the module's
+    docstring).
 
     ``inputs`` are the trees of tensors copied into the graph on every
-    call; ``static`` are the hashable arguments the step is specialised
-    on.  Calls run under ``torch.inference_mode``."""
+    call; ``resident`` are trees used where they lie (a corpus kept on the
+    device, like the weights: keyed by data pointer); ``static`` are the
+    hashable arguments the step is specialised on.  A ``torch.Generator``
+    among them is registered with the graph, and an optimizer's state
+    (``capture_key``) joins the key.
 
-    def __init__(self, fn: Callable):
+    An inference step (the default) runs under ``torch.inference_mode``; a
+    ``training`` step runs with autograd on, so its graph holds the
+    forward, the backward and the optimizer's update, all writing in place
+    into tensors made before the capture (``ClippedAdamW.prepare``)."""
+
+    def __init__(self, fn: Callable, training: bool = False):
         self.fn = fn
         self.name = fn.__name__
+        self.training = training
+
+    def _mode(self):
+        return torch.enable_grad() if self.training else torch.inference_mode()
 
     def key(self, model: torch.nn.Module, inputs: Dict[str, Any], static: Dict[str, Any],
-            device: torch.device) -> tuple:
+            device: torch.device, resident: Optional[Dict[str, Any]] = None) -> tuple:
         return (
             self.name, id(self), id(model), getattr(getattr(model, "config", None), "compute_dtype", None),
             model.training, _data_pointers(model), backend_flags(), str(device), tuple(sorted(static.items())),
-            _signature(inputs),
+            _signature(inputs), _state_key(static, resident or {}),
         )
 
-    @torch.inference_mode()
     def eager(self, model: torch.nn.Module, device: torch.device, inputs: Dict[str, Any],
-              **static):
+              resident: Optional[Dict[str, Any]] = None, **static):
         """The step run eagerly on any device, never captured."""
-        return self.fn(model, **inputs, **static)
+        with self._mode():
+            return self.fn(model, **inputs, **(resident or {}), **static)
 
-    @torch.inference_mode()
     def __call__(self, model: torch.nn.Module, device: torch.device, inputs: Dict[str, Any],
-                 **static):
-        if not GRAPHS.applies(device):
-            return self.fn(model, **inputs, **static)
-        key = self.key(model, inputs, static, device)
-        captured = _CACHE.get(key)
-        if captured is None:
-            return self._capture(key, model, device, inputs, static)
-        _CACHE.move_to_end(key)
-        for dst, src in zip(captured.inputs, _leaves(inputs)):
-            dst.copy_(src)
-        captured.graph.replay()
-        _advance_counts(captured.launched)
-        return _map(captured.outputs, torch.clone)
+                 resident: Optional[Dict[str, Any]] = None, **static):
+        resident = resident or {}
+        with self._mode():
+            if not GRAPHS.applies(device):
+                return self.fn(model, **inputs, **resident, **static)
+            key = self.key(model, inputs, static, device, resident)
+            captured = _CACHE.get(key)
+            if captured is None:
+                return self._capture(key, model, device, inputs, resident, static)
+            _CACHE.move_to_end(key)
+            for dst, src in zip(captured.inputs, _leaves(inputs)):
+                dst.copy_(src)
+            captured.graph.replay()
+            _advance_counts(captured.launched)
+            return _map(captured.outputs, torch.clone)
 
-    def _capture(self, key: tuple, model, device, inputs, static):
-        result = self.fn(model, **inputs, **static)  # the warm-up is the call's result
+    def _capture(self, key: tuple, model, device, inputs, resident, static):
+        result = self.fn(model, **inputs, **resident, **static)  # the warm-up is the call's result
         static_inputs = _map(inputs, torch.clone)
+        generators = [v for v in static.values() if isinstance(v, torch.Generator)]
         counts = _read_counts()
         t0 = time.perf_counter()
         try:
             graph, outputs, pool_bytes = GRAPHS.capture(
-                lambda: self.fn(model, **static_inputs, **static), device)
+                lambda: self.fn(model, **static_inputs, **resident, **static), device, *generators)
         except Exception as exc:
-            shown = key[:5] + (f"<{len(key[5])} data pointers>",) + key[6:]
+            shown = key[:5] + (f"<{len(key[5])} data pointers>",) + key[6:10] + (
+                "<the optimizer's and the resident trees' data pointers>",)
             raise RuntimeError(
                 f"{self.name}: CUDA graph capture failed for key {shown}: {exc}") from exc
         finally:
@@ -284,6 +325,7 @@ class CompiledStep:
             (time.perf_counter() - t0) * 1e3, pool_bytes,
         )
         _CACHE[key] = captured
+        CAPTURES[self.name] += 1
         while len(_CACHE) > CAPACITY:
             _CACHE.popitem(last=False)[1].graph.reset()
         return result

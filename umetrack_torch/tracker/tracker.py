@@ -10,11 +10,13 @@ over all frames at once again.  :func:`track_frame` is the streaming form:
 one frame, the state carried by the caller.  Every warp of every frame of a
 call goes through ONE call of the image-pool sampler (``ops/warp_pool.py``).
 
-The three serving entry points (:func:`track_frame`,
-:func:`track_sequence`, :func:`track_sequences_batched`), jitted in the JAX
-package, run on the card as captured CUDA graphs (``compiled.py``): the
-first call per key runs eagerly and captures, later calls replay.  Their
-eager forms are the ``_*_step`` functions; the calibrations stay eager.
+Every entry point jitted in the JAX package (:func:`track_frame`,
+:func:`track_sequence`, :func:`track_sequences_batched` and the
+calibrations :func:`calibrate_sequences_batched`,
+:func:`predict_scales_sequence`, :func:`calibrate_sequence`) runs on the
+card as a captured CUDA graph (``compiled.py``): the first call per key
+runs eagerly and captures, later calls replay.  Their eager forms are the
+``_*_step`` functions.
 
 Units: the tracker API is mm, the model consumes meters.  Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
@@ -549,7 +551,77 @@ def _first_n_valid_mean(
     return (scales * w).sum(dim=-1) / torch.clamp(w.sum(dim=-1), min=1.0)
 
 
-@torch.inference_mode()
+def _calibrate_sequences_batched_step(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rigs: CameraRig,  # fields [S, N]
+    seqs: FrameObservation,  # leaves [S, T, ...]
+    init_state: TrackState,  # leaves [2S, ...]
+    hand_models_mm: HandModel,  # [S, ...]
+    n_calibration_samples: int,
+    min_num_crops: int,
+    sampler: str,
+) -> torch.Tensor:  # [S]
+    """:func:`calibrate_sequences_batched` on inputs already on the model's
+    device."""
+    s = rigs.fx.shape[0]
+    crop_sets_t, crop_images_t = _prepare_sequences_merged(
+        config, rigs, seqs, hand_models_mm, min_num_crops, sampler
+    )
+    results, _ = _model_scan(
+        model, config, crop_sets_t, crop_images_t, init_state, None,
+        torch.arange(2, device=crop_images_t.device).repeat(s),
+    )
+
+    def per_sequence(a):  # [T, 2S] -> [S, T*2] frame-major, hand-minor
+        return a.reshape(-1, s, 2).transpose(0, 1).reshape(s, -1)
+
+    return _first_n_valid_mean(
+        per_sequence(results.predicted_scales), per_sequence(results.valid),
+        n_calibration_samples,
+    )
+
+
+def _predict_scales_step(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,
+    seq: FrameObservation,  # leaves [T, ...]
+    init_state: TrackState,
+    hand_model_mm: HandModel,
+    min_num_crops: int,
+    sampler: str,
+) -> Tuple[torch.Tensor, torch.Tensor, TrackState]:
+    """:func:`predict_scales_sequence` on inputs already on the model's
+    device."""
+    crop_sets, crop_images = _prepare_frames(config, rig, seq, hand_model_mm, min_num_crops, sampler)
+    results, state = _model_scan(
+        model, config, crop_sets, crop_images, init_state, None,
+        torch.arange(2, device=crop_images.device),
+    )
+    return results.predicted_scales, results.valid, state
+
+
+def _calibrate_step(
+    model: UmeTrackNet,
+    config: TrackerConfig,
+    rig: CameraRig,
+    seq: FrameObservation,  # leaves [T, ...]
+    init_state: TrackState,
+    hand_model_mm: HandModel,
+    n_calibration_samples: int,
+    sampler: str,
+) -> torch.Tensor:  # scalar
+    """:func:`calibrate_sequence` on inputs already on the model's device."""
+    scales, valid, _ = _predict_scales_step(model, config, rig, seq, init_state, hand_model_mm, 2, sampler)
+    return _first_n_valid_mean(scales.reshape(-1), valid.reshape(-1), n_calibration_samples)
+
+
+_CALIBRATE_BATCHED = CompiledStep(_calibrate_sequences_batched_step)
+_PREDICT_SCALES = CompiledStep(_predict_scales_step)
+_CALIBRATE = CompiledStep(_calibrate_step)
+
+
 def calibrate_sequences_batched(
     model: UmeTrackNet,
     config: TrackerConfig,
@@ -565,28 +637,11 @@ def calibrate_sequences_batched(
     runs on 2S merged hand rows, and each sequence averages its first
     ``n_calibration_samples`` valid predictions (frame-major, hand 0 before
     hand 1: the order in which the original evaluation appends them)."""
-    device, (rigs, seqs, init_state, hand_models_mm) = _on_device(
-        model, device, rigs, seqs, init_state, hand_models_mm
-    )
-    s = rigs.fx.shape[0]
-    crop_sets_t, crop_images_t = _prepare_sequences_merged(
-        config, rigs, seqs, hand_models_mm, min_num_crops, config.resolved_sampler(device)
-    )
-    results, _ = _model_scan(
-        model, config, crop_sets_t, crop_images_t, init_state, None,
-        torch.arange(2, device=device).repeat(s),
-    )
-
-    def per_sequence(a):  # [T, 2S] -> [S, T*2] frame-major, hand-minor
-        return a.reshape(-1, s, 2).transpose(0, 1).reshape(s, -1)
-
-    return _first_n_valid_mean(
-        per_sequence(results.predicted_scales), per_sequence(results.valid),
-        n_calibration_samples,
-    )
+    return _entry(_CALIBRATE_BATCHED, model, device, dict(
+        rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
+    ), config=config, n_calibration_samples=n_calibration_samples, min_num_crops=min_num_crops)
 
 
-@torch.inference_mode()
 def predict_scales_sequence(
     model: UmeTrackNet,
     config: TrackerConfig,
@@ -601,17 +656,9 @@ def predict_scales_sequence(
     one): (scales [T, 2], valid [T, 2], final state).  The building block of
     the chunked calibration pass, whose callers aggregate across chunks on
     the host."""
-    device, (rig, seq, init_state, hand_model_mm) = _on_device(
-        model, device, rig, seq, init_state, hand_model_mm
-    )
-    crop_sets, crop_images = _prepare_frames(
-        config, rig, seq, hand_model_mm, min_num_crops, config.resolved_sampler(device)
-    )
-    results, state = _model_scan(
-        model, config, crop_sets, crop_images, init_state, None,
-        torch.arange(2, device=device),
-    )
-    return results.predicted_scales, results.valid, state
+    return _entry(_PREDICT_SCALES, model, device, dict(
+        rig=rig, seq=seq, init_state=init_state, hand_model_mm=hand_model_mm,
+    ), config=config, min_num_crops=min_num_crops)
 
 
 def calibrate_sequence(
@@ -627,10 +674,9 @@ def calibrate_sequence(
     """Unknown-skeleton pass 1: predict per-frame skeleton scales on 2-view
     frames and average the first ``n_calibration_samples`` valid ones
     (0 = all), frame-major, hand 0 before hand 1."""
-    scales, valid, _ = predict_scales_sequence(
-        model, config, rig, seq, init_state, hand_model_mm, 2, device
-    )
-    return _first_n_valid_mean(scales.reshape(-1), valid.reshape(-1), n_calibration_samples)
+    return _entry(_CALIBRATE, model, device, dict(
+        rig=rig, seq=seq, init_state=init_state, hand_model_mm=hand_model_mm,
+    ), config=config, n_calibration_samples=n_calibration_samples)
 
 
 @torch.inference_mode()
