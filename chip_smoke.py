@@ -172,7 +172,10 @@ exits non-zero without a result line:
    ``warp_image_windowed`` launch a batch); ``run_distillation`` with the
    checkpoint as a ``.torch`` teacher (finite gaps and metric set, its
    ``ckpt_step_*`` orbax directories);
-11. ``[accuracy]``: the accuracy workflow's drivers (``umetrack_torch/
+11. ``[accuracy]``: the initial draw of ``init_train_model(ModelConfig())``
+   held to flax's default (the JAX package's: std * sqrt(fan_in) near 1,
+   the truncation, zero biases, BN 1 / 0 / 0 / 1), then the accuracy
+   workflow's scripts (``umetrack_torch/
    scripts/``) at the full width of ``ModelConfig()`` in a temporary
    folder: ``resident_train gen`` (16 + 4 capsule-rendered sequences x 16
    frames, one ``warp_pool`` launch a sequence; the npz cache read back
@@ -252,6 +255,22 @@ KERNEL_ATOL = 2e-2  # on the 0-255 scale, the JAX tests' bound
 TRAIN_SMALL = dict(start_planes=8, backbone_blocks=(1, 1, 1, 1), n_image_feature_channels=12,
                    n_memory_channels=6)
 TRAIN_B, TRAIN_K = 3, 4
+# The gates that hold seeded weights to fixed bounds (the tracker's card
+# against CPU, chunked against whole and bf16 against f32 at STRICT /
+# BF16_LOOP; the train step's card against CPU and NCCL against no group;
+# ``[tp]``'s evaluations and steps) need weights that do not magnify
+# rounding.  flax's draw (the port's initial weights, with BN
+# running stats 0 / 1, so eval-mode BN is the identity) magnifies it as a
+# trained model does (ROADMAP Queue 3 item 5): the chunked eval moved
+# 0.060 mm (bound 2e-3), the NCCL group's temporal step 9.4 x its bound
+# (at batch seed 2; noise of 1e-6 on the images moves the CPU's own
+# gradients 0.79-58 x the bounds at every batch seed 0-19), the model
+# axis's full-width scale loss 1.3e-05 relative (bound 1e-05).  So these
+# gates keep the weights they were measured on before the port took it
+# (``gate_weights``, equal bit for bit to that draw) and their batch seeds
+# (0; the model axis's 3).  The training phases and ``[accuracy]`` draw
+# flax's, and its init line holds the rule.
+GATE_WEIGHTS_SEED = 0
 LOSS_RTOL, STATS_TOL = 1e-5, 1e-5
 GRAD_REL_L2, FIRST_LAYERS_REL_L2, ZERO_GRAD_NOISE = 1e-3, 1e-2, 1e-5
 FIRST_LAYERS = ("backbone.stem_", "backbone.stage0_block0.")
@@ -331,8 +350,8 @@ TP_EVAL_MM, TP_EVAL_RTOL, TP_NORM_RTOL = 1e-3, 1e-4, 1e-5
 # step with the same cuDNN setting (the images nudged in the group of one;
 # the data split by a data-only group of 2, data 2 x model 1).  The
 # gradients and the norm are gated at phase 9's bounds on
-# tests/test_torch_tp.py's small config and batches, which a nudge moves by
-# at most 5e-5 (measured on the CPU).
+# tests/test_torch_tp.py's small config and B=6 batches, from
+# ``gate_weights`` (see GATE_WEIGHTS_SEED).
 TP_SMALL = dict(start_planes=16, backbone_blocks=(1, 1, 1, 1), n_image_feature_channels=12,
                 n_memory_channels=6)
 TP_SMALL_B, TP_SMALL_SEED, TP_SMALL_VALID = 6, 3, (True, True, True, True, False, False)
@@ -2405,7 +2424,7 @@ def phase_process_group(model, tally, rigs, seqs, hands, unsharded, card):
         out = {}
         with tf32_off():
             for label, step_fn, batch in steps:
-                m = make_model(ModelConfig(**TRAIN_SMALL), seed=0, device="cuda")
+                m = gate_weights(make_model(ModelConfig(**TRAIN_SMALL), device="cuda"))
                 shard_variables(m, make_mesh())
                 state = create_train_state(m, ClippedAdamW(m.parameters(), 1e-3, 1e-5))
                 metrics = step_fn(state, batch)
@@ -2531,9 +2550,9 @@ def tp_eval(model, mesh, rigs, seqs, hands, generic):
 
 
 def tp_small_batches():
-    """tests/test_torch_tp.py's batches: TP_SMALL_B rows from seed
-    TP_SMALL_SEED with its valid masks (the data indices hold different
-    numbers of valid rows), on the card."""
+    """Batches built as tests/test_torch_tp.py builds them: TP_SMALL_B rows
+    from seed TP_SMALL_SEED with its valid masks (the data indices hold
+    different numbers of valid rows), on the card."""
     import dataclasses
 
     import numpy as np
@@ -2583,7 +2602,7 @@ def tp_steps(mesh, noise=None, configs=("full", "small"), cudnn=True, profile=Fa
             window = dataclasses.replace(window, frames=nudge(window.frames))
         for label, step_fn, batch in (("train_step", train_step, frame),
                                       (f"temporal_train_step K={TRAIN_K}", temporal_train_step, window)):
-            model = make_model(config, seed=0, device="cuda")
+            model = gate_weights(make_model(config, device="cuda"))
             if mesh is not None:
                 shard_variables(model, mesh)
                 batch = shard_batch(batch, mesh)
@@ -2762,7 +2781,7 @@ def tp_worker(rank, world, port, out_dir, model_axis=TP_MODEL, crops_path=""):
         generic = from_dict(load_generic_hand_dict(), device="cuda")
         res["eval"] = {}
         for label, weights in (("seeded weights", None), ("checkpoint", load_checkpoint(CHECKPOINT))):
-            model = make_model(ModelConfig(), seed=0, device="cuda")
+            model = gate_weights(make_model(ModelConfig(), device="cuda"))
             if weights is not None:
                 model.load_state_dict(weights)
             shard_variables(model, mesh)
@@ -2804,9 +2823,9 @@ def tp_references(ckpt_cuda):
     rigs, seqs, hands = make_sequences(TP_S, TP_T, seed=TP_SEED, device="cuda")
     generic = from_dict(load_generic_hand_dict(), device="cuda")
     evals = {label: tp_eval(model, make_mesh(), rigs, seqs, hands, generic)
-             for label, model in (("seeded weights", make_model(ModelConfig(), seed=0, device="cuda")),
+             for label, model in (("seeded weights", gate_weights(make_model(ModelConfig(), device="cuda"))),
                                   ("checkpoint", ckpt_cuda))}
-    seeded = make_model(ModelConfig(), seed=0, device="cuda")
+    seeded = gate_weights(make_model(ModelConfig(), device="cuda"))
     call = lambda: eval_sequences_batched(  # noqa: E731
         seeded, TrackerConfig(), rigs, seqs, make_batched_state(seeded, TP_S), hands)
     return dict(eval=evals, steps=tp_steps(None), eval_ms=median_ms(call, 3, warmup=1),
@@ -3059,6 +3078,34 @@ def phase_tp(ckpt_cuda, card):
 # ---- the training slice ------------------------------------------------------
 
 
+def gate_weights(model):
+    """``model`` with the weights the seeded-weights gates were measured
+    on (see GATE_WEIGHTS_SEED): drawn on the CPU from a generator
+    seeded GATE_WEIGHTS_SEED, U(+-1/sqrt(fan_in)) conv and dense weights and
+    biases, BN scale 1 and bias 0, running mean N(0, 0.1^2) and var 1 +
+    U(0, 1).  Test data, not an initialisation: the port draws flax's."""
+    import torch
+
+    g = torch.Generator().manual_seed(GATE_WEIGHTS_SEED)
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=g) * 2.0 - 1.0) * bound
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                bound = m.weight[0].numel() ** -0.5
+                m.weight.copy_(uniform(m.weight.shape, bound))
+                if m.bias is not None:
+                    m.bias.copy_(uniform(m.bias.shape, bound))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_(1.0 + torch.rand(m.running_var.shape, generator=g))
+    return model
+
+
 def small_train_batches(device, b=TRAIN_B, seed=0):
     """The CPU tests' batches at their small config: one single-frame
     batch and one K-frame window made from K single-frame draws (the rows
@@ -3132,7 +3179,7 @@ def phase_train_cpu_vs_card():
         out = {}
         with tf32_off():
             for dev in ("cpu", "cuda"):
-                model = make_model(ModelConfig(**TRAIN_SMALL), seed=0, device=dev)
+                model = gate_weights(make_model(ModelConfig(**TRAIN_SMALL), device=dev))
                 state = create_train_state(model, ClippedAdamW(model.parameters(), 1e-3, 1e-5))
                 metrics = step_fn(state, batch.to(dev))
                 out[dev] = ({k: float(v) for k, v in metrics.items()},
@@ -3779,7 +3826,7 @@ def phase_bf16_streaming(wp_mod, models, tally, card):
     rigs, seqs, hands = make_sequences(S_SMALL, T_SMALL, seed=100, device="cpu")
     cfg16 = ModelConfig(compute_dtype=BF16)
     with tf32_off():
-        res_cpu, _ = HandTracker(make_model(cfg16, seed=0, device="cpu"), device="cpu") \
+        res_cpu, _ = HandTracker(gate_weights(make_model(cfg16, device="cpu")), device="cpu") \
             .track_sequences_batched(rigs, seqs, hands)
         res_gpu, _ = tally(lambda: HandTracker(models[0][1], device="cuda").track_sequences_batched(
             rigs.to("cuda"), seqs.to("cuda"), hands.to("cuda")), 1, "bf16 card against CPU")
@@ -3846,6 +3893,43 @@ def phase_bf16_resident(corpus, f32_step_ms, card):
         f"{f32_step_ms:.1f}), peak mem {peak:.2f} GiB; parameters f32; {captures} over the loop [{card}]")
 
 
+def init_rule_line(card):
+    """The initial draw of every training entry (``init_train_model(
+    ModelConfig())``) is flax's default, the JAX package's: std *
+    sqrt(fan_in) within 5 % of 1 for every conv / dense kernel of at least
+    1,024 elements, |w| * sqrt(fan_in) <= 2 / 0.8796 (the truncation), zero
+    biases, BN 1 / 0 / 0 / 1.  Raises if the rule breaks."""
+    import numpy as np
+    import torch
+    from umetrack_torch.models import ModelConfig
+    from umetrack_torch.parallel import init_train_model
+
+    model = init_train_model(ModelConfig(), seed=0, device="cuda")
+    scaled_std, peak, nonzero, n_bias = [], 0.0, 0, 0
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            w = m.weight.detach().double()
+            root = w[0].numel() ** 0.5
+            scaled_std.append((float(w.std()) * root, w.numel()))
+            peak = max(peak, float(w.abs().max()) * root)
+            if m.bias is not None:
+                n_bias += 1
+                nonzero += int(bool(m.bias.any()))
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            check(bool((m.weight == 1).all() and (m.bias == 0).all() and (m.running_mean == 0).all()
+                       and (m.running_var == 1).all()), "init: a BatchNorm is not 1 / 0 / 0 / 1")
+    stds = np.asarray([r for r, _ in scaled_std])
+    held = [r for r, n in scaled_std if n >= 1024]
+    log(f"[accuracy] init_train_model(ModelConfig()): std * sqrt(fan_in) over the {len(stds)} conv / "
+        f"dense kernels min {stds.min():.4f} median {np.median(stds):.4f} max {stds.max():.4f} "
+        f"({len(held)} of >= 1,024 elements within {max(abs(r - 1) for r in held):.4f} of 1), largest "
+        f"|w| * sqrt(fan_in) {peak:.5f} (truncation {2 / 0.8796:.5f}), nonzero biases {nonzero} of "
+        f"{n_bias}, BN 1 / 0 / 0 / 1: flax's default draw [{card}]")
+    check(all(abs(r - 1) <= 0.05 for r in held), "init: a kernel's std * sqrt(fan_in) is off 1 by > 5 %")
+    check(peak <= 2 / 0.8796, f"init: |w| * sqrt(fan_in) {peak} beyond the truncation")
+    check(nonzero == 0, f"init: {nonzero} nonzero conv / dense biases")
+
+
 def phase_accuracy(wp_mod, wi_mod, card):
     """The accuracy workflow's drivers (``umetrack_torch/scripts/``) at the
     full width of ``ModelConfig()``, in a temporary folder: ``resident_train
@@ -3871,6 +3955,7 @@ def phase_accuracy(wp_mod, wi_mod, card):
     from umetrack_torch.utils.checkpoints import load_checkpoint
 
     t_phase = time.perf_counter()
+    init_rule_line(card)
     by_path = {}
 
     def driven(fn, want, label):
@@ -4305,7 +4390,7 @@ def phase_graph(wp_mod, models, tally, card):
                     free_card()  # the S=64 graphs' pools are 10-13 GiB each
 
     # a TF32 toggle recaptures and replays without TF32; an in-place load is followed
-    model = make_model(ModelConfig(), seed=0, device="cuda")
+    model = gate_weights(make_model(ModelConfig(), device="cuda"))
     ckpt = models[-1][1]
     tracker = HandTracker(model, device="cuda")
     for label, graphed, eager, capture_in, replay_in, init in entries(tracker):
@@ -4459,7 +4544,7 @@ def main():
     del pool_operands
     free_card()
 
-    model_cuda = make_model(ModelConfig(), seed=0, device="cuda")
+    model_cuda = gate_weights(make_model(ModelConfig(), device="cuda"))
     pool_launches = phase_slice(wp_mod, model_cuda, rigs, seqs, hands, card)
     tracker = HandTracker(model_cuda, device="cuda")
     phase_profile(lambda: tracker.track_sequences_batched(rigs, seqs, hands),
@@ -4467,7 +4552,7 @@ def main():
 
     # the bf16 paths: ``bf16_tally`` sets the pool kernel's counter to 0 just
     # before each of their entry-point calls and reads it just after
-    model16 = make_model(ModelConfig(compute_dtype=BF16), seed=0, device="cuda")
+    model16 = gate_weights(make_model(ModelConfig(compute_dtype=BF16), device="cuda"))
     bf16_tally = LaunchTally(wp_mod.warp_pool)
     bf16_ms = phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
     bf16_tracker_launches = bf16_tally.total
@@ -4481,7 +4566,7 @@ def main():
 
     win_launches, full_launches, win_bf16 = phase_torchdata_slice(wp_mod, wi_mod, model_cuda, card)
 
-    model_cpu = make_model(ModelConfig(), seed=0, device="cpu")
+    model_cpu = gate_weights(make_model(ModelConfig(), device="cpu"))
     phase_cpu_vs_card(model_cpu, model_cuda, wi_mod)
     phase_torchdata_cpu_vs_card(model_cpu, model_cuda)
 

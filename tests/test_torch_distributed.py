@@ -48,12 +48,15 @@ S, T = 4, 3  # eval: 2 sequences a rank
 B, K = 6, 4  # train: 3 rows a rank
 # rank 0 holds 3 valid rows, rank 1 one; in the window rank 0 holds 11
 # valid (row, frame) slots and rank 1 six
-# The batches' seed: at 0 the single-frame batch puts a pre-activation
-# within f32 rounding of a kink, so nudging its images at the level of f32
-# rounding moves the one-process gradient itself past the 1e-3 bound
-# (stage1_block0.downsample_bn.bias), and the comparison would measure the
-# kink, not the sharding
-BATCH_SEED = 3
+# The batches' seed: the comparison must measure the sharding, not a kink
+# of the step (a pre-activation within f32 rounding of a ReLU's, which
+# moves the one-process gradient itself past the bounds when the images
+# move by an ulp).  With the seeded weights of flax's draw, random noise of
+# one ulp (1e-7 relative) on the images moves the one-process gradients by
+# up to 6.6 x the bounds (train_step) and 12.5 x (temporal) at seed 3, 7.8
+# x (temporal) at 0; 7 is the first seed at which both steps stay under
+# 1 % of the bounds (0.0074 x, 0.0064 x).
+BATCH_SEED = 7
 VALID = np.array([1, 1, 1, 1, 0, 0], bool)
 VALID_T = np.ones((B, K), bool)
 VALID_T[1, 3] = VALID_T[4] = VALID_T[5, 2:] = False

@@ -278,33 +278,38 @@ class UmeTrackNet(nn.Module):
     forward = known_skeleton
 
 
-def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights, drawn on the CPU from ``generator``:
-    uniform(+-1/sqrt(fan_in)) conv and linear weights and biases, unit BN
-    scales, and BN running stats perturbed (mean ~ N(0, 0.1^2), var ~
-    1 + U(0, 1)) so that normalisation is not the identity."""
-    def uniform(shape, bound):
-        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+# flax's ``variance_scaling(..., "truncated_normal")`` divides the standard
+# deviation by that of a unit normal truncated to [-2, 2]
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
 
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights, drawn on the CPU from ``generator``, from the
+    distribution flax's defaults give the JAX package's layers: conv and
+    dense kernels ``lecun_normal`` (a normal of std 1/sqrt(fan_in), fan_in
+    = kh*kw*c_in, truncated at two of its stds), biases 0, BN scale 1 and
+    bias 0, running mean 0 and running var 1."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                bound = m.weight[0].numel() ** -0.5
-                m.weight.copy_(uniform(m.weight.shape, bound))
+                std = m.weight[0].numel() ** -0.5 / _TRUNCATED_NORMAL_STD
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+                m.weight.copy_(w)
                 if m.bias is not None:
-                    m.bias.copy_(uniform(m.bias.shape, bound))
+                    m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=generator) * 0.1)
-                m.running_var.copy_(1.0 + torch.rand(m.running_var.shape, generator=generator))
+                m.reset_running_stats()
     return model
 
 
 def make_model(
     config: Optional[ModelConfig] = None, seed: int = 0, device="cpu"
 ) -> UmeTrackNet:
-    """A :class:`UmeTrackNet` in eval mode with seeded random weights."""
+    """A :class:`UmeTrackNet` in eval mode with seeded random weights
+    (:func:`init_weights`: flax's default draw)."""
     return init_model(torch.Generator().manual_seed(seed), config, device)[0]
 
 
@@ -312,7 +317,8 @@ def init_model(
     generator: torch.Generator, config: Optional[ModelConfig] = None, device="cpu"
 ) -> Tuple[UmeTrackNet, Dict[str, torch.Tensor]]:
     """(model, its state dict): a :class:`UmeTrackNet` of ``config`` in eval
-    mode with random weights drawn from ``generator``, as the JAX package's
+    mode with random weights drawn from ``generator`` from flax's default
+    distribution (:func:`init_weights`), as the JAX package's
     ``init_model(rng, config)`` returns (model, variables)."""
     model = init_weights(UmeTrackNet(config), generator).to(device).eval()
     return model, model.state_dict()

@@ -213,6 +213,29 @@ class ClippedAdamW(torch.optim.Optimizer):
         return (hyper, self.schedule, self.max_grad_norm,
                 tuple(None if t is None else t.data_ptr() for t in tensors))
 
+    def snapshot(self) -> dict:
+        """The state an update reads, on the CPU: the update count and each
+        parameter's moments in parameter order (:meth:`restore`)."""
+        self.prepare()
+        return dict(count=self.count, moments=[
+            (self.state[p]["exp_avg"].cpu().clone(), self.state[p]["exp_avg_sq"].cpu().clone())
+            for p in self._params()
+        ])
+
+    @torch.no_grad()
+    def restore(self, snapshot: dict) -> None:
+        """Continue from :meth:`snapshot`'s state, written into this
+        optimizer's own tensors in place."""
+        params = self._params()
+        if len(snapshot["moments"]) != len(params):
+            raise ValueError(f"snapshot of {len(snapshot['moments'])} parameters, optimizer of {len(params)}")
+        self.count = int(snapshot["count"])
+        self.prepare()
+        self.step_count.fill_(float(self.count))
+        for p, (mu, nu) in zip(params, snapshot["moments"]):
+            self.state[p]["exp_avg"].copy_(mu)
+            self.state[p]["exp_avg_sq"].copy_(nu)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:

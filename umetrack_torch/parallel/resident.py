@@ -337,6 +337,9 @@ def run_resident_training(
     log_fn: Optional[Callable[[dict], None]] = None,
     checkpoint_fn: Optional[Callable[[TrainState, int], None]] = None,
     checkpoint_every: int = 0,
+    resume: Optional[dict] = None,
+    stop_step: Optional[int] = None,
+    snapshot_fn: Optional[Callable[[dict], None]] = None,
 ) -> Tuple[TrainState, List[dict]]:
     """Train ``model`` (in place, on the corpus's device) on windows drawn
     from ``corpus``: AdamW with global-norm clipping at 1.0 and a
@@ -344,7 +347,13 @@ def run_resident_training(
     ``log_every`` steps (and at the last) a history row of the metrics and
     steps/s, with the eval MPJPE / MPJPA every ``eval_every`` steps;
     ``checkpoint_fn(state, step)`` every ``checkpoint_every`` steps.
-    Returns (state, history)."""
+
+    A long run can be split: ``stop_step`` ends the loop before that step
+    (the schedule still spans ``num_steps``), ``snapshot_fn`` receives
+    :func:`loop_snapshot` with every checkpoint and when the loop ends,
+    and ``resume`` (such a snapshot, from a run with the same arguments)
+    continues from its step with its weights, optimizer, random streams
+    and history, as the unsplit run would.  Returns (state, history)."""
     device = corpus.images.device
     schedule = warmup_cosine_decay_schedule(
         0.0, learning_rate, min(warmup_steps, max(num_steps // 10, 1)), num_steps,
@@ -359,14 +368,24 @@ def run_resident_training(
     k = min(window, t)
     generator = torch.Generator(device=device).manual_seed(seed) if augment else None
     history = []
+    start = 0
+    if resume is not None:
+        start, history = resume["step"], list(resume["history"])
+        model.load_state_dict(resume["model"])
+        state.optimizer.restore(resume["optimizer"])
+        state.step = start
+        rng.bit_generator.state = resume["rng"]
+        if generator is not None:
+            generator.set_state(resume["generator"])
+    end = num_steps if stop_step is None else min(stop_step, num_steps)
     t_start = time.perf_counter()
-    for step in range(num_steps):
+    for step in range(start, end):
         seq_idx, t0 = draw_window(rng, n, seqs_per_batch, t - k + 1, device)
         metrics = resident_train_step(state, corpus, seq_idx, t0, weights, k, generator)
         if step % log_every == 0 or step == num_steps - 1:
             m = {key: float(v) for key, v in metrics.items()}
             m["step"] = step
-            m["steps_per_s"] = (step + 1) / (time.perf_counter() - t_start)
+            m["steps_per_s"] = (step + 1 - start) / (time.perf_counter() - t_start)
             if eval_every and (step % eval_every == 0 or step == num_steps - 1):
                 ec = eval_corpus if eval_corpus is not None else corpus
                 eval_idx = torch.arange(min(seqs_per_batch, ec.n_sequences), device=device)
@@ -376,9 +395,30 @@ def run_resident_training(
             history.append(m)
             if log_fn:
                 log_fn(m)
-        if checkpoint_fn is not None and checkpoint_every and step and step % checkpoint_every == 0:
-            checkpoint_fn(state, step)
+        if checkpoint_every and step and step % checkpoint_every == 0:
+            if checkpoint_fn is not None:
+                checkpoint_fn(state, step)
+            if snapshot_fn is not None:
+                snapshot_fn(loop_snapshot(state, rng, generator, step + 1, history))
+    if snapshot_fn is not None:
+        snapshot_fn(loop_snapshot(state, rng, generator, max(end, start), history))
     return state, history
+
+
+def loop_snapshot(state: TrainState, rng: np.random.Generator, generator: Optional[torch.Generator],
+                  step: int, history: List[dict]) -> dict:
+    """What :func:`run_resident_training` needs to continue before ``step``,
+    on the CPU: the weights and BatchNorm stats, the optimizer's state, the
+    window draws' and the augmentation's random streams, and the history
+    so far (``torch.save`` writes it, ``torch.load`` reads it back)."""
+    return dict(
+        step=step,
+        model={key: v.detach().cpu().clone() for key, v in state.model.state_dict().items()},
+        optimizer=state.optimizer.snapshot(),
+        rng=rng.bit_generator.state,
+        generator=None if generator is None else generator.get_state(),
+        history=list(history),
+    )
 
 
 def _diagnose(model: UmeTrackNet, seq_idx: torch.Tensor, t0: torch.Tensor, corpus: ResidentCorpus,

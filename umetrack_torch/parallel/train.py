@@ -133,8 +133,9 @@ def create_train_state(model: UmeTrackNet, optimizer: ClippedAdamW) -> TrainStat
 
 def init_train_model(config=None, seed: int = 0, device=None) -> UmeTrackNet:
     """A model to train from scratch on ``device`` (CUDA unless "cpu"):
-    seeded random weights with fresh BatchNorm running stats (mean 0, var 1,
-    as flax initialises them)."""
+    seeded random weights from flax's default distribution, as every JAX
+    training entry starts (``models/umetrack.py::init_weights``), with
+    fresh BatchNorm running stats (mean 0, var 1)."""
     model = make_model(config, seed=seed, device=resolve_device(device))
     for m in model.modules():
         if isinstance(m, BatchNorm):

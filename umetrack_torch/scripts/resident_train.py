@@ -16,6 +16,10 @@ package reads a corpus the other wrote.  Histories go under ``--out-dir``.
 
     python -m umetrack_torch.scripts.resident_train gen --n-train 256 --n-eval 16
     python -m umetrack_torch.scripts.resident_train train --steps 2000 --ckpt runs_torch/r.msgpack
+
+A run longer than one sitting is split with ``--state`` and ``--stop-step``
+(port-only flags): the same command with a later ``--stop-step`` (or none)
+continues where the last one stopped, as the unsplit run would.
 """
 from __future__ import annotations
 
@@ -239,6 +243,17 @@ def _run(args, restrict_seqs=None, tag="train"):
                 save_checkpoint(args.ckpt, state.model.state_dict())
                 logger.info("periodic checkpoint @ step %d -> %s", step, args.ckpt)
 
+        resume = None
+        if args.state and os.path.exists(args.state):
+            resume = torch.load(args.state, map_location="cpu")
+            logger.info("resuming %s before step %d", args.state, resume["step"])
+
+        def snapshot_fn(snapshot):
+            tmp = f"{args.state}.tmp"
+            torch.save(snapshot, tmp)
+            os.replace(tmp, args.state)
+            logger.info("training state before step %d -> %s", snapshot["step"], args.state)
+
         _, history = run_resident_training(
             model, corpus, eval_corpus=evalc,
             num_steps=args.steps, seqs_per_batch=args.seqs_per_batch,
@@ -247,6 +262,7 @@ def _run(args, restrict_seqs=None, tag="train"):
             eval_every=args.eval_every, seed=args.seed,
             augment=not args.no_augment, log_fn=log_fn,
             checkpoint_fn=checkpoint_fn, checkpoint_every=2000,
+            resume=resume, stop_step=args.stop_step, snapshot_fn=snapshot_fn if args.state else None,
         )
 
     with open(history_path, "w") as fp:
@@ -325,6 +341,13 @@ def build_parser():
     p.add_argument("--init-ckpt", default=None)
     p.add_argument("--ckpt", default=None,
                    help="checkpoint to write: a .msgpack file, any other path an orbax directory")
+    p.add_argument("--state", default=None,
+                   help="train: the whole training state (weights, optimizer, random streams, "
+                   "history), written with every periodic checkpoint and when the run stops; "
+                   "a run given an existing file continues from it")
+    p.add_argument("--stop-step", type=int, default=None,
+                   help="train: stop before this step (the schedule still spans --steps); "
+                   "with --state, a later run continues from there")
     p.add_argument("--device", default=None,
                    help="'cuda[:i]' (the default; raises without a GPU) or 'cpu'")
     p.add_argument("--out-dir", default=DEFAULT_OUT_DIR,
