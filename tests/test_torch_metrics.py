@@ -109,22 +109,3 @@ def test_phase_timers_accumulate_and_report():
     assert lines[0].startswith("stage: ") and "items/s" not in lines[0]
     assert lines[1].startswith("track: ") and "over 3 calls" in lines[1] and "items/s" in lines[1]
 
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    """``utils/profiling.trace``: a Chrome trace of the block's work in
-    ``log_dir``; nothing at all without a ``log_dir``."""
-    import json
-
-    import torch
-
-    from umetrack_torch.utils.profiling import trace
-
-    log_dir = tmp_path / "trace"
-    with trace(str(log_dir)):
-        torch.ones((8, 8)).matmul(torch.ones((8, 8)))
-    with open(log_dir / "trace.json") as fp:
-        events = json.load(fp)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
-    with trace(None), trace(""):
-        pass
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["trace"]

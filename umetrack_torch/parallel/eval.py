@@ -155,7 +155,7 @@ def eval_sequences_batched(
     return _global(model, *_entry(_compiled(_EVAL_BATCHED), model, device, dict(
         rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
         skel_hand_models_mm=skel_hand_models_mm, lm_hand_models_mm=lm_hand_models_mm,
-    ), config=config, min_num_crops=min_num_crops))
+    ), name="eval_sequences_batched", config=config, min_num_crops=min_num_crops))
 
 
 @torch.inference_mode()
@@ -181,7 +181,8 @@ def eval_sequences_unknown_batched(
     global under a process group as in :func:`eval_sequences_batched`."""
     per_seq, n_valid, totals, scales = _entry(_compiled(_EVAL_UNKNOWN), model, device, dict(
         rigs=rigs, seqs=seqs, hand_models_mm=hand_models_mm, generic_hand_model_mm=generic_hand_model_mm,
-    ), config=config, n_calibration_samples=n_calibration_samples, min_num_crops=min_num_crops)
+    ), name="eval_sequences_unknown_batched", config=config,
+        n_calibration_samples=n_calibration_samples, min_num_crops=min_num_crops)
     if is_initialized():
         scales = gather_blocks(scales, 0, data_group_of(model))
     return (*_global(model, per_seq, n_valid, totals), scales)

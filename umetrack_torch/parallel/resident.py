@@ -11,7 +11,9 @@ augmentation draws from a ``torch.Generator`` on the corpus's device.  On
 the card the train step, the eval and the diagnosis are captured CUDA
 graphs, the counterpart of their ``jax.jit``: the window start is a device
 input, so one graph serves every start, and the corpus is read where it
-lies.
+lies.  Under a profile a train step is the root span
+``entry.resident_train_step``, the move of its window start the span
+``to_device`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..kinematics.hand import HandModel, scaled_hand_model
 from ..kinematics.skinning import skin_landmarks
 from ..models.umetrack import FrameInputs, SkeletonInputs, TemporalState, UmeTrackNet
 from ..tracker.compiled import CompiledStep
+from ..utils.profiling import entry, span
 from .optim import ClippedAdamW, warmup_cosine_decay_schedule
 from .train import (
     LossWeights,
@@ -245,11 +248,14 @@ def resident_train_step(
     with no process group the step is one captured graph for every
     ``seq_idx`` and ``t0`` (``parallel/train.py::run_step``); the corpus
     stays where it lies."""
-    device = corpus.images.device
-    return run_step(
-        _RESIDENT, state, dict(seq_idx=seq_idx, t0=torch.as_tensor(t0, device=device)),
-        dict(corpus=corpus), weights=weights, window=window, generator=generator,
-    )
+    with entry("resident_train_step"):
+        device = corpus.images.device
+        with span("to_device"):
+            t0 = torch.as_tensor(t0, device=device)
+        return run_step(
+            _RESIDENT, state, dict(seq_idx=seq_idx, t0=t0),
+            dict(corpus=corpus), weights=weights, window=window, generator=generator,
+        )
 
 
 def _eval_rollout(model: UmeTrackNet, batch: TemporalTrainBatch):

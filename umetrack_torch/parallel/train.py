@@ -67,6 +67,7 @@ from ..kinematics.skinning import skin_landmarks
 from ..models.backbone import BatchNorm
 from ..models.umetrack import FrameInputs, SkeletonInputs, TemporalState, UmeTrackNet, make_model
 from ..tracker.compiled import CompiledStep
+from ..utils.profiling import entry
 from .distributed import is_initialized
 from .mesh import data_group_of
 from .optim import ClippedAdamW
@@ -415,16 +416,19 @@ def run_step(step: CompiledStep, state: TrainState, inputs: dict, resident: Opti
     and captures), else eagerly (gloo's collectives cannot be captured;
     ``eager`` asks for it).  The model goes to train mode and the
     optimizer's state is made BEFORE the key is read; the host's counts
-    move after the call, which a replay does not run."""
-    model, optimizer = state.model, state.optimizer
-    model.train()
-    optimizer.prepare()
-    device = next(model.parameters()).device
-    run = step.eager if eager or is_initialized() else step
-    metrics = run(model, device, inputs, resident, optimizer=optimizer, **static)
-    optimizer.count += 1
-    state.step += 1
-    return metrics
+    move after the call, which a replay does not run.  Under a profile the
+    step is the root span ``entry.<step's function>`` unless the caller's
+    entry point opened one."""
+    with entry(step.name):
+        model, optimizer = state.model, state.optimizer
+        model.train()
+        optimizer.prepare()
+        device = next(model.parameters()).device
+        run = step.eager if eager or is_initialized() else step
+        metrics = run(model, device, inputs, resident, optimizer=optimizer, **static)
+        optimizer.count += 1
+        state.step += 1
+        return metrics
 
 
 def train_step(

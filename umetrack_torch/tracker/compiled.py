@@ -46,6 +46,12 @@ The warp kernels count their launches in Python (``ops/warp_pool.py``,
 Python.  So the launches a capture records are taken back off the counters
 (nothing ran), and each replay adds them again: the counters go on
 counting the kernels that ran on the card.
+
+Under a profile, a call's host time is split into the spans ``step.key``
+(the key), ``step.stage`` (the copies into the static inputs),
+``step.replay`` (the replay's launch) and ``step.outputs`` (the clones of
+the static outputs), or ``step.capture`` (the eager run and the capture)
+for a new key (``utils/profiling.py::span``).
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ import torch
 
 from ..ops.warp_image import warp_image_full, warp_image_windowed
 from ..ops.warp_pool import warp_pool
+from ..utils.profiling import span
 
 CAPACITY = 4  # graphs kept, over all steps
 COUNTED = (warp_pool, warp_image_full, warp_image_windowed)  # wrappers with launch counters
@@ -292,16 +299,21 @@ class CompiledStep:
         with self._mode():
             if not GRAPHS.applies(device):
                 return self.fn(model, **inputs, **resident, **static)
-            key = self.key(model, inputs, static, device, resident)
+            with span("step.key"):
+                key = self.key(model, inputs, static, device, resident)
             captured = _CACHE.get(key)
             if captured is None:
-                return self._capture(key, model, device, inputs, resident, static)
+                with span("step.capture"):
+                    return self._capture(key, model, device, inputs, resident, static)
             _CACHE.move_to_end(key)
-            for dst, src in zip(captured.inputs, _leaves(inputs)):
-                dst.copy_(src)
-            captured.graph.replay()
+            with span("step.stage"):
+                for dst, src in zip(captured.inputs, _leaves(inputs)):
+                    dst.copy_(src)
+            with span("step.replay"):
+                captured.graph.replay()
             _advance_counts(captured.launched)
-            return _map(captured.outputs, torch.clone)
+            with span("step.outputs"):
+                return _map(captured.outputs, torch.clone)
 
     def _capture(self, key: tuple, model, device, inputs, resident, static):
         result = self.fn(model, **inputs, **resident, **static)  # the warm-up is the call's result

@@ -18,11 +18,17 @@ card as a captured CUDA graph (``compiled.py``): the first call per key
 runs eagerly and captures, later calls replay.  Their eager forms are the
 ``_*_step`` functions.
 
+Under a profile each entry point is the root span ``entry.<its name>``,
+and the move of its inputs to the card the span ``to_device``
+(``utils/profiling.py``); :data:`HOST_COPIES` counts the moves and the
+host tensors they copy to the card, profile or not.
+
 Units: the tracker API is mm, the model consumes meters.  Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import collections
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +50,7 @@ from ..ops.resample import (
     fisheye_to_pinhole_coords,
 )
 from ..ops.warp_pool import warp_pool
+from ..utils.profiling import entry, span
 from .compiled import CompiledStep
 from .crops import gather_cameras, gen_crop_set, landmarks_from_pose, static_crop_points_local
 from .types import (
@@ -57,6 +64,11 @@ from .types import (
     TrackerConfig,
     TrackState,
 )
+
+
+# calls of ``_on_device`` ("calls") and the host tensors they copied to the
+# card ("copies"), over the process
+HOST_COPIES: "collections.Counter[str]" = collections.Counter()
 
 
 def _crop_coords(
@@ -315,11 +327,20 @@ def pool_warp_operands(
 
 
 def _on_device(model: UmeTrackNet, device, *trees):
+    """``trees`` moved to ``device``, counted in :data:`HOST_COPIES`."""
     device = resolve_device(device)
     p = next(model.parameters())
     if p.device.type != device.type or (device.index is not None and p.device != device):
         raise ValueError(f"model is on {p.device}, the call on {device}: move it first")
-    return device, [None if tr is None else tr.to(device) for tr in trees]
+    HOST_COPIES["calls"] += 1
+
+    def move(a: torch.Tensor) -> torch.Tensor:
+        if a.device.type == "cpu" and device.type != "cpu":
+            HOST_COPIES["copies"] += 1
+        return a.to(device)
+
+    with span("to_device"):
+        return device, [None if tr is None else tr.map(move) for tr in trees]
 
 
 @torch.inference_mode()
@@ -445,13 +466,16 @@ _SEQUENCE = CompiledStep(_sequence_step)
 _SEQUENCES_BATCHED = CompiledStep(_sequences_batched_step)
 
 
-def _entry(step, model: UmeTrackNet, device, trees: dict, **static):
+def _entry(step, model: UmeTrackNet, device, trees: dict, *, name: str = "", **static):
     """``step`` (a :class:`CompiledStep` or its ``eager`` form) on ``trees``
     moved to ``device`` (outside any captured region), with the sampler the
-    config resolves there."""
-    device, moved = _on_device(model, device, *trees.values())
-    sampler = static["config"].resolved_sampler(device)
-    return step(model, device, dict(zip(trees, moved)), sampler=sampler, **static)
+    config resolves there; under a profile, the root span
+    ``entry.<name>``, ``name`` the public entry point's (by default the
+    step's)."""
+    with entry(name or getattr(step, "__self__", step).name):
+        device, moved = _on_device(model, device, *trees.values())
+        sampler = static["config"].resolved_sampler(device)
+        return step(model, device, dict(zip(trees, moved)), sampler=sampler, **static)
 
 
 def track_frame(
@@ -470,7 +494,7 @@ def track_frame(
     head (``predicted_scales`` is set).  Results are ``[2, ...]`` in mm."""
     return _entry(
         _FRAME, model, device, dict(rig=rig, obs=obs, state=state, hand_model_mm=hand_model_mm),
-        config=config, min_num_crops=min_num_crops, known=known,
+        name="track_frame", config=config, min_num_crops=min_num_crops, known=known,
     )
 
 
@@ -492,7 +516,7 @@ def track_sequence(
         _SEQUENCE, model, device,
         dict(rig=rig, seq=seq, init_state=init_state, hand_model_mm=hand_model_mm,
              skel_hand_model_mm=skel_hand_model_mm),
-        config=config, min_num_crops=min_num_crops,
+        name="track_sequence", config=config, min_num_crops=min_num_crops,
     )
 
 
@@ -513,7 +537,7 @@ def track_sequences_batched(
     return _entry(_SEQUENCES_BATCHED, model, device, dict(
         rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
         skel_hand_models_mm=skel_hand_models_mm,
-    ), config=config, min_num_crops=min_num_crops)
+    ), name="track_sequences_batched", config=config, min_num_crops=min_num_crops)
 
 
 def _track_sequences_batched_eager(
@@ -533,7 +557,7 @@ def _track_sequences_batched_eager(
     return _entry(_SEQUENCES_BATCHED.eager, model, device, dict(
         rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
         skel_hand_models_mm=skel_hand_models_mm,
-    ), config=config, min_num_crops=min_num_crops)
+    ), name="track_sequences_batched_eager", config=config, min_num_crops=min_num_crops)
 
 
 def _first_n_valid_mean(
@@ -639,7 +663,8 @@ def calibrate_sequences_batched(
     hand 1: the order in which the original evaluation appends them)."""
     return _entry(_CALIBRATE_BATCHED, model, device, dict(
         rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
-    ), config=config, n_calibration_samples=n_calibration_samples, min_num_crops=min_num_crops)
+    ), name="calibrate_sequences_batched", config=config,
+        n_calibration_samples=n_calibration_samples, min_num_crops=min_num_crops)
 
 
 def predict_scales_sequence(
@@ -658,7 +683,7 @@ def predict_scales_sequence(
     the host."""
     return _entry(_PREDICT_SCALES, model, device, dict(
         rig=rig, seq=seq, init_state=init_state, hand_model_mm=hand_model_mm,
-    ), config=config, min_num_crops=min_num_crops)
+    ), name="predict_scales_sequence", config=config, min_num_crops=min_num_crops)
 
 
 def calibrate_sequence(
@@ -676,7 +701,7 @@ def calibrate_sequence(
     (0 = all), frame-major, hand 0 before hand 1."""
     return _entry(_CALIBRATE, model, device, dict(
         rig=rig, seq=seq, init_state=init_state, hand_model_mm=hand_model_mm,
-    ), config=config, n_calibration_samples=n_calibration_samples)
+    ), name="calibrate_sequence", config=config, n_calibration_samples=n_calibration_samples)
 
 
 @torch.inference_mode()

@@ -1,21 +1,68 @@
-"""Wall-clock phase timers with throughput accounting, and a profiler
-trace context.
+"""Wall-clock phase timers with throughput accounting, and the program's
+spans.
 
-Counterpart of ``PhaseTimers`` and ``trace`` in
+``PhaseTimers`` is the counterpart of the one in
 ``umetrack_tpu/utils/profiling.py``.  PyTorch returns before the GPU has
 finished, so a phase that must include its device work names the device as
 its ``barrier``: the timer synchronises it before it reads the clock.
+
+:func:`span` and :func:`entry` mark where the program's host time goes.
+They are on exactly while a ``torch.profiler`` profile runs: each is then a
+profiler range named ``umetrack.<name>``, kept in the profiler's
+events and on the clock of its CUPTI device events, so an idle gap of the
+device can be put down to what the host was doing.  Otherwise each costs
+one flag check and returns a shared null context.  A span's parent is the
+span open around it on the same thread; an entry span (``entry.<name>``)
+is the root of one call into the program, and the spans inside it belong
+to that call.  A range opened inside a captured CUDA graph exists only at
+the capture, never at a replay: spans mark the host's side of a replay.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+
+PREFIX = "umetrack."  # the start of every span's name in a profile
+_NULL = contextlib.nullcontext()
+_PROFILER = torch.autograd.profiler  # its ``_is_profiler_enabled`` is set while a profile runs
+_THREAD = threading.local()  # ``root``: an entry span is open on this thread
+# the range: ``record_function``'s event without its Python wrapper and op
+# dispatch (about 2 instead of 16 us a range on the host)
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A context manager: the profiler range ``umetrack.<name>`` while a
+    profile runs, else a shared null context."""
+    if not _PROFILER._is_profiler_enabled:
+        return _NULL
+    return _RANGE(PREFIX + name)
+
+
+def entry(name: str):
+    """The root span ``umetrack.entry.<name>`` of one call into the
+    program, while a profile runs and no root is open on this thread (a
+    call made inside another call's root belongs to that root); else a
+    shared null context."""
+    if not _PROFILER._is_profiler_enabled or getattr(_THREAD, "root", False):
+        return _NULL
+    return _root(name)
+
+
+@contextlib.contextmanager
+def _root(name: str):
+    _THREAD.root = True
+    try:
+        with _RANGE(PREFIX + "entry." + name):
+            yield
+    finally:
+        _THREAD.root = False
 
 
 def fetch_barrier(tree=None) -> None:
@@ -58,17 +105,19 @@ class PhaseTimers:
 
     @contextlib.contextmanager
     def phase(self, name: str, items: int = 0, barrier: Optional[torch.device] = None):
-        """Time the block; with a CUDA ``barrier`` device, wait for the work
-        queued on it before the clock is read (a CPU device needs no wait)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if barrier is not None and torch.device(barrier).type == "cuda":
-                torch.cuda.synchronize(barrier)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-            self.items[name] += items
+        """Time the block, which is also the span ``name``; with a CUDA
+        ``barrier`` device, wait for the work queued on it before the clock
+        is read (a CPU device needs no wait)."""
+        with span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if barrier is not None and torch.device(barrier).type == "cuda":
+                    torch.cuda.synchronize(barrier)
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
+                self.items[name] += items
 
     def report(self) -> str:
         lines = []
@@ -83,23 +132,3 @@ class PhaseTimers:
     def as_dict(self) -> Dict[str, float]:
         return dict(self.totals)
 
-
-@contextlib.contextmanager
-def trace(log_dir: Optional[str]):
-    """Profile the block with ``torch.profiler`` (the CPU, and CUDA when
-    there is a card) and write a Chrome trace, ``trace.json``, into
-    ``log_dir`` (made if missing); does nothing when ``log_dir`` is falsy.
-    A profiler that fails raises: a run asked to trace never returns
-    without its trace."""
-    if not log_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
