@@ -10,7 +10,7 @@ exits non-zero without a result line:
    and whether cuDNN and matmuls may use TF32: PyTorch lets cuDNN, so every
    "f32" convolution below runs in TF32 unless a phase says TF32 off);
 2. the build of ``umetrack_torch/csrc/warp_pool.cu`` and ``warp_image.cu``
-   with their shared header, of the native idx/bin reader
+   with their shared header and of ``bn_act.cu``, of the native idx/bin reader
    ``umetrack_io.cpp`` and of the zstd decoder ``zstd_decode.cpp`` (the
    ``nvcc`` and ``g++`` runs started together, ``-Xptxas -v`` condensed to
    a line per kernel) and its time;
@@ -22,6 +22,22 @@ exits non-zero without a result line:
    checked each time; the time of a call of the wrapper (median of single
    calls) and of the kernel alone (launches back to back), the byte bound
    and the streaming floor (``stream_ms``);
+   ``[bn_act]``: the one-pass eval-mode BatchNorm kernel (``csrc/bn_act.cu``)
+   against its plain version in f32 and bf16 at every shape and form a
+   track_sequences_batched call at S=64 x T=16 gives it (4096 crops: the
+   stem's 32 x 96 x 96 with its conv bias and the max-pool; 32 x 48 x 48,
+   64 x 24 x 24, 128 x 12 x 12 and 256 x 6 x 6 with and without the
+   identity residual, and the BN'd residual where a stage downsamples;
+   2048 rows at 6 x 6: the fusion's conv bias + BN + ReLU at 108 and 72
+   channels, the regressors' blocks at 76 and 72; the skeleton encoder's
+   128 x 4 x 6 x 6) and on edge cases (the scalar path, planes smaller
+   than a vector, a conv bias without the pool, channel slices, misaligned
+   pointers, NaN and inf): the path taken, the max abs error, ms a call,
+   the kernel's device time, its byte bound and share, the plain version's
+   ms (the unfused PyTorch sequence the model ran before); its launches are
+   counted over the main paths' entry-point calls alone, each call checked
+   against the model's sites (32 a known-skeleton forward, 31 a scale
+   head's);
 4. ``track_sequences_batched`` at the full width of ``ModelConfig()`` (f32),
    S=64, T=16, seeded random weights: one kernel launch per call, finite
    outputs, wall time per call and frames/s; then one call under
@@ -378,6 +394,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
 NEAREST_LIBRARY = "torch.nn.functional.grid_sample on an f32 copy: NOT the same function"
+# the one-pass BatchNorm kernel: the backbone's crops in a track_sequences_batched
+# call at the bench shape (S x T frames x 2 hands x 2 view slots), the rows
+# of its fusion and regressor (S x T frames x 2 hands) and of its skeleton
+# encoder (2 S hand models)
+BN_CROPS = S_BENCH * T_BENCH * 2 * 2
+BN_ROWS = S_BENCH * T_BENCH * 2
+BN_SKELETONS = S_BENCH * 2
+# the kernel against the plain version: max abs error over the output's
+# largest magnitude (at least 1).  The two compute BN's affine in other
+# orders: f32 a few ulp; bf16 a result rounded the other way, one ulp of
+# bf16 (2^-7 relative), perhaps carried through the residual add: two.
+BN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
 NO_LIBRARY = ("no single PyTorch call computes this function (grid_sample zero-pads "
               "per tap, not per floor cell, and takes float images and normalised grids)")
 
@@ -778,9 +806,9 @@ def phase_device():
 
 
 def phase_build():
-    """Both CUDA sources and the two host libraries' C++ sources (the native
-    reader, the zstd decoder) at once (one nvcc or g++ each), then the
-    libraries loaded.  Returns the kernel modules and the seconds the zstd
+    """The three CUDA sources and the two host libraries' C++ sources (the
+    native reader, the zstd decoder) at once (one nvcc or g++ each), then
+    the libraries loaded.  Returns the kernel modules and the seconds the zstd
     decoder's build took."""
     import importlib
     from concurrent.futures import ThreadPoolExecutor
@@ -795,15 +823,17 @@ def phase_build():
 
     wp_mod = importlib.import_module("umetrack_torch.ops.warp_pool")
     wi_mod = importlib.import_module("umetrack_torch.ops.warp_image")
+    bn_mod = importlib.import_module("umetrack_torch.ops.bn_act")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         hosts = [pool.submit(timed, _build.build_host, name) for name in (native.NAME, _zstd.NAME)]
         paths = list(pool.map(lambda name: _build.build(name, verbose=True),
-                              (wp_mod.NAME, wi_mod.NAME)))
+                              (wp_mod.NAME, wi_mod.NAME, bn_mod.NAME)))
         hosts = [h.result() for h in hosts]
     paths += [path for path, _ in hosts]
     wp_mod._library()
     wi_mod._library()
+    bn_mod._library()
     native.load_library()
     _zstd.load_library()
     log(f"[build] {', '.join(os.path.relpath(p, HERE) for p in paths)} "
@@ -912,8 +942,8 @@ def burst_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, reps=20):
-    """Mean device time of the port's own kernels (names holding ``warp_``)
+def device_ms(fn, reps=20, name="warp_"):
+    """Mean device time of the port's own kernels (names holding ``name``)
     over ``reps`` calls of ``fn`` under torch.profiler: the kernel alone,
     whatever the host takes to make a launch (at the smaller shapes a call
     from Python takes as long as the kernel runs, so launches made back to
@@ -938,7 +968,7 @@ def device_ms(fn, reps=20):
             torch.cuda.synchronize()
         total_us, count = 0.0, 0
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and "warp_" in e.key:
+            if e.device_type == DeviceType.CUDA and name in e.key:
                 dev = getattr(e, "self_device_time_total", None)
                 total_us += e.self_cuda_time_total if dev is None else dev
                 count += e.count
@@ -1062,6 +1092,231 @@ def phase_kernel(wp_mod, rigs, seqs, hands, card):
     kern = dict(max_abs_err=max(err, edge_err), ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, grid_sample_ms=nearest_ms)
     return kern, (pool, coords, src)
+
+
+# ---- the one-pass eval-mode BatchNorm kernel --------------------------------
+
+
+def bn_shapes():
+    """Every shape and form the one-pass BatchNorm takes in a
+    track_sequences_batched call at the bench shape and at the full width of
+    ``ModelConfig()`` (the scale head's regressor: a calibration's), read
+    off the model's modules: (label, rows, channels, side, forms).  Forms:
+    "relu": BN + ReLU, "residual": + the identity, "bn_residual": + the BN'd
+    downsample branch, "bias": the conv bias first (the fusion),
+    "bias_pool": the conv bias first and the max-pool after (the stem)."""
+    from umetrack_torch.models import ModelConfig
+    from umetrack_torch.models.umetrack import UmeTrackNet
+
+    cfg = ModelConfig()
+    net = UmeTrackNet(cfg)
+    side = cfg.input_size[0] // 2
+    shapes = [("stem", BN_CROPS, net.backbone.stem_bn.num_features, cfg.input_size[0], ("bias_pool",))]
+    for i, (planes, stride) in enumerate(zip(cfg.stage_out_planes, cfg.backbone_strides)):
+        side //= stride
+        first = getattr(net.backbone, net.backbone.blocks[sum(cfg.backbone_blocks[:i])])
+        forms = ("relu", "residual") + (("bn_residual",) if first.use_downsample else ())
+        shapes.append((f"stage{i}", BN_CROPS, planes, side, forms))
+    side = cfg.feature_map_size[0]
+    for i in range(cfg.n_fusion_blocks):
+        bn = getattr(net.fusion, f"bn{i}")
+        shapes.append((f"fusion.bn{i}", BN_ROWS, bn.num_features, side, ("bias",)))
+    shapes.append(("skeleton_encoder", BN_SKELETONS, net.skeleton_encoder.bn.num_features, side, ("relu",)))
+    for head in ("regressor_k", "regressor_u"):
+        block = getattr(net, head).block0
+        shapes.append((head, BN_ROWS, block.bn1.num_features, side, ("relu", "residual")))
+    return shapes
+
+
+def bn_sites(known=0, scale=0):
+    """``batch_norm_act``'s launches in ``known`` forwards of the known-
+    skeleton model and ``scale`` of the scale head at the full width of
+    ``ModelConfig()``: each extracts features (the stem, two per backbone
+    BasicBlock, one per fusion block) and runs a regressor (two per
+    BasicBlock); the known head also encodes the skeleton (one).  32 and 31."""
+    from umetrack_torch.models import ModelConfig
+
+    cfg = ModelConfig()
+    head = 1 + 2 * sum(cfg.backbone_blocks) + cfg.n_fusion_blocks + 2 * cfg.n_regression_blocks
+    return known * (head + 1) + scale * head
+
+
+def bn_norm(c, seed):
+    """An eval-mode ``BatchNorm`` on the card with random statistics and an
+    affine of both signs."""
+    import torch
+    from umetrack_torch.models.backbone import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    norm = BatchNorm(c).eval()
+    with torch.no_grad():
+        norm.running_mean.copy_(torch.randn(c, generator=g) * 0.3)
+        norm.running_var.copy_(0.5 + torch.rand(c, generator=g) * 1.5)
+        norm.weight.copy_(torch.randn(c, generator=g))
+        norm.bias.copy_(torch.randn(c, generator=g) * 0.3)
+    return norm.cuda()
+
+
+def bn_operands(form, n, c, h, w, dtype, seed):
+    """``batch_norm_act``'s keyword arguments for ``form`` on random data."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, c, h, w), generator=g, device="cuda").to(dtype)
+    kw = dict(x=x, norm=bn_norm(c, seed))
+    if form in ("bias", "bias_pool"):
+        kw.update(conv_bias=torch.randn(c, generator=g, device="cuda") * 0.3, pool=form == "bias_pool")
+    elif form in ("residual", "bn_residual"):
+        kw["residual"] = torch.randn((n, c, h, w), generator=g, device="cuda").to(dtype)
+        if form == "bn_residual":
+            kw["residual_norm"] = bn_norm(c, seed + 1)
+    return kw
+
+
+def bn_bytes(kw, out):
+    """The least bytes the pass moves: each operand read once, the result
+    written once, the per-channel constants read once."""
+    operands = [kw["x"], kw.get("residual"), kw.get("conv_bias"), out]
+    for norm in (kw["norm"], kw.get("residual_norm")):
+        if norm is not None:
+            operands += [norm.running_mean, norm.running_var, norm.weight, norm.bias]
+    return sum(t.numel() * t.element_size() for t in operands if t is not None)
+
+
+def bn_compare(bn_mod, kw, label, want_path):
+    """The kernel against the plain version on ``kw``: the path taken, NaN
+    where the plain version has NaN, and the max abs error over the output's
+    largest magnitude within BN_TOL; returns (kernel's output, max abs
+    error)."""
+    import torch
+
+    wrapper = bn_mod.batch_norm_act
+    before = wrapper.paths[want_path]
+    got = wrapper(**kw)
+    want = bn_mod.batch_norm_act_plain(**kw)
+    torch.cuda.synchronize()
+    check(wrapper.paths[want_path] == before + 1,
+          f"[bn_act] {label}: expected path {want_path}, counts {dict(wrapper.paths)}")
+    check(got.shape == want.shape and got.dtype == want.dtype, f"[bn_act] {label}: shape or dtype")
+    nan = torch.isnan(want)
+    check(bool((torch.isnan(got) == nan).all()), f"[bn_act] {label}: NaN where the plain version has none")
+    g, p = got.float()[~nan], want.float()[~nan]
+    check(bool((torch.isinf(g) == torch.isinf(p)).all() & (g[torch.isinf(p)] == p[torch.isinf(p)]).all()),
+          f"[bn_act] {label}: inf where the plain version has none")
+    finite = torch.isfinite(p)
+    err = float((g[finite] - p[finite]).abs().max()) if bool(finite.any()) else 0.0
+    scale = max(1.0, float(p[finite].abs().max())) if bool(finite.any()) else 1.0
+    tol = BN_TOL[str(kw["x"].dtype)[6:]]
+    check(err / scale <= tol, f"[bn_act] {label}: max abs error {err:.3e} over {scale:.3g} above {tol:.3e}")
+    same = float((got == want).float().mean()) if got.numel() else 1.0
+    log(f"[bn_act] {label}: path {want_path}, max_abs_err {err:.3e} (output scale {scale:.3g}, "
+        f"tolerance {tol:.2e} of it), {same:.4f} of the outputs bit for bit")
+    return got, err
+
+
+def bn_edge_cases(bn_mod):
+    """Small shapes that take the scalar path, vectors that cross planes,
+    channel slices, a misaligned residual, NaN and inf; returns the max abs
+    error over them."""
+    import torch
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        v = 16 // torch.empty((), dtype=dtype).element_size()
+        cases = [
+            # (label, form, n, c, h, w, path)
+            ("odd pool 7 x 10", "bias_pool", 5, 3, 7, 10, "vector" if 10 % (2 * v) == 0 else "scalar"),
+            ("pool 6 x 16", "bias_pool", 5, 3, 6, 16, "vector"),
+            ("planes of 1 x 1", "relu", 7, 20, 1, 1, "vector" if 20 % v == 0 else "scalar"),
+            ("planes of 2 x 2", "residual", 7, 16, 2, 2, "vector"),
+            ("3 planes of 6 x 6", "bn_residual", 9, 3, 6, 6, "vector" if 108 % v == 0 else "scalar"),
+            ("conv bias, 3 planes of 6 x 6", "bias", 9, 3, 6, 6, "vector" if 108 % v == 0 else "scalar"),
+            ("conv bias, planes of 5 x 7", "bias", 4, 6, 5, 7, "scalar"),
+            ("conv bias, planes of 2 x 2", "bias", 5, 16, 2, 2, "vector"),
+        ]
+        for label, form, n, c, h, w, path in cases:
+            kw = bn_operands(form, n, c, h, w, dtype, len(label))
+            err = max(err, bn_compare(bn_mod, kw, f"{label} {str(dtype)[6:]}", path)[1])
+        # a residual that is a slice of channels (the scale head's input), aligned
+        kw = bn_operands("residual", 6, 16, 6, 6, dtype, 3)
+        big = torch.randn((6, 40, 6, 6), device="cuda").to(dtype)
+        kw["residual"] = big[:, 8:24]
+        check(not kw["residual"].is_contiguous(), "a channel slice")
+        err = max(err, bn_compare(bn_mod, kw, f"channel-slice residual {str(dtype)[6:]}", "vector")[1])
+        # a residual one element past a 16-byte boundary
+        buf = torch.empty(kw["x"].numel() + 1, dtype=dtype, device="cuda")
+        shifted = buf[1:].view(kw["x"].shape)
+        shifted.copy_(kw["x"] * 0.5)
+        kw["residual"] = shifted
+        err = max(err, bn_compare(bn_mod, kw, f"misaligned residual {str(dtype)[6:]}", "scalar")[1])
+        # NaN and inf in, through BN + ReLU and through the pool
+        for form in ("relu", "bias_pool"):
+            kw = bn_operands(form, 4, 8, 6, 8 * v // 4, dtype, 11)
+            flat = kw["x"].view(-1)
+            flat[[0, 5, 17, 40]] = torch.tensor([float("nan"), float("inf"), -float("inf"), float("nan")],
+                                                dtype=dtype, device="cuda")
+            err = max(err, bn_compare(bn_mod, kw, f"NaN and inf, {form} {str(dtype)[6:]}", "vector")[1])
+    return err
+
+
+def phase_bn_act(card):
+    """``[bn_act]``: the kernel against its plain version at every shape and
+    form of the bench's tracker call (:func:`bn_shapes`) in f32 and bf16,
+    then the edge cases;
+    times, byte bounds and shares, under ``inference_mode`` as the model
+    runs it.  Returns the rows of the kernel table and the edge cases' max
+    abs error."""
+    import torch
+    import torch.nn.functional as F
+    from umetrack_torch.ops import bn_act as bn_mod
+
+    wrapper = bn_mod.batch_norm_act
+    launches0 = wrapper.launches
+    rows = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for label, n, c, side, forms in bn_shapes():
+                for form in forms:
+                    rows.append(bn_row(bn_mod, form, label, n, c, side, dtype, len(rows) + 1, card))
+        edge_err = bn_edge_cases(bn_mod)
+        log(f"[bn_act] edge cases max_abs_err {edge_err:.3e}; {wrapper.launches - launches0} launches "
+            f"in the phase, by path {dict(wrapper.paths)}")
+        # the form's pieces one by one, for context: what the unfused model ran
+        kw = bn_operands("residual", BN_CROPS, 32, 48, 48, torch.float32, 99)
+        x, norm, r = kw["x"], kw["norm"], kw["residual"]
+        pieces = {"batch_norm": lambda: norm(x), "add": lambda: x + r, "relu": lambda: F.relu(x),
+                  "max_pool2d": lambda: F.max_pool2d(x, 2, 2)}
+        log("[bn_act] stage0 f32, one unfused op each (median of 5): " + ", ".join(
+            f"{op} {median_ms(fn, reps=5, warmup=1):.4f} ms" for op, fn in pieces.items()) + f" [{card}]")
+    del kw, x, norm, r, pieces
+    torch.cuda.empty_cache()
+    return rows, edge_err
+
+
+def bn_row(bn_mod, form, label, n, c, side, dtype, seed, card):
+    """One shape of :func:`phase_bn_act`: checked, then timed."""
+    import torch
+
+    wrapper = bn_mod.batch_norm_act
+    kw = bn_operands(form, n, c, side, side, dtype, seed)
+    name = f"{label} {c} x {side} x {side} {form} {str(dtype)[6:]}"
+    out, err = bn_compare(bn_mod, kw, name, "vector")
+    args = (kw["x"], kw["norm"], kw.get("conv_bias"), kw.get("residual"),
+            kw.get("residual_norm"), kw.get("pool", False))
+    ms = median_ms(lambda: wrapper(**kw), reps=20)
+    kernel_ms = device_ms(lambda: bn_mod._launch(*args), name="batch_norm_act")
+    plain_ms = median_ms(lambda: bn_mod.batch_norm_act_plain(**kw), reps=5, warmup=1)
+    moved = bn_bytes(kw, out)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"[bn_act] {name}: N={n}, {ms:.4f} ms a call of the wrapper (median of 20), "
+        f"kernel alone {kernel_ms:.4f} ms (device time, the profiler saw {device_ms.seen} "
+        f"of 20), plain {plain_ms:.4f} ms (the unfused PyTorch sequence, library_ms), "
+        f"bound {bound_ms:.4f} ms (bytes: {moved / 1e6:.1f} MB at 3.35 TB/s), share "
+        f"{bound_ms / kernel_ms:.3f} of the kernel alone, {bound_ms / ms:.3f} of a call [{card}]")
+    del kw, out, args
+    torch.cuda.empty_cache()
+    return dict(shape=f"{name}, N={n}", max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", share=bound_ms / kernel_ms)
 
 
 # ---- the two single-image kernels ------------------------------------------
@@ -1368,12 +1623,14 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
     from umetrack_torch.tracker import HandTracker, TrackerConfig
     from umetrack_torch.tracker.tracker import pool_warp_operands
 
+    from umetrack_torch.ops.bn_act import batch_norm_act
+
     tracker = HandTracker(model, TrackerConfig(), device="cuda")
     s, t = seqs.gt_confidences.shape[:2]
     wp_mod.warp_pool.launches = 0
-    times = []
+    times, bn_calls = [], []
     for _ in range(1 + TRACK_CALLS):  # the first call warms cuDNN up
-        before = wp_mod.warp_pool.launches
+        before, bn_before = wp_mod.warp_pool.launches, batch_norm_act.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res, state = tracker.track_sequences_batched(rigs, seqs, hands)
@@ -1381,6 +1638,11 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
         times.append(time.perf_counter() - t0)
         check(wp_mod.warp_pool.launches == before + 1,
               f"warp_pool launches per call: {wp_mod.warp_pool.launches - before}")
+        bn_calls.append(batch_norm_act.launches - bn_before)
+    check(bn_calls == [bn_sites(known=1)] * len(bn_calls),
+          f"batch_norm_act launches per call: {bn_calls}, expected {bn_sites(known=1)} each")
+    log(f"[slice] batch_norm_act launches per track_sequences_batched call (eager, then replays): "
+        f"{bn_calls}, the model's sites")
     n_launches = wp_mod.warp_pool.launches
     check(res.joint_angles.shape == (t, s, 2, 22), f"angles shape {tuple(res.joint_angles.shape)}")
     check(res.wrist_xfs.shape == (t, s, 2, 4, 4), f"wrist shape {tuple(res.wrist_xfs.shape)}")
@@ -1398,7 +1660,7 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
         f"{s * t / med:.1f} frames/s, crop geometry alone {geom:.1f} ms, "
         f"valid hands {n_valid}/{res.valid.numel()}, peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    return n_launches
+    return n_launches, sum(bn_calls)
 
 
 def profile_call(fn):
@@ -1797,20 +2059,26 @@ def rendered_sequence(t, seed, device, hand_scale=1.07):
 
 
 class LaunchTally:
-    """The pool kernel's launches over the evaluation path's entry-point
-    calls alone: the counter is set to 0 just before each such call and read
-    just after it, and ``total`` is the sum of those readings.  Comparisons,
-    timings and profiles run outside it."""
+    """The launches of the pool kernel and of the one-pass BatchNorm over a
+    path's entry-point calls alone: both counters are set to 0 just before
+    each such call and read just after it, and ``total`` (the pool's) and
+    ``bn_total`` are the sums of those readings.  Each pool launch feeds one
+    forward of the model, ``scale`` of a call's the scale head's and the
+    rest the known skeleton's, so a call makes :func:`bn_sites` BatchNorm
+    launches.  Comparisons, timings and profiles run outside it."""
 
-    def __init__(self, wrapper):
-        self.wrapper, self.total = wrapper, 0
+    def __init__(self, pool, bn):
+        self.pool, self.bn, self.total, self.bn_total = pool, bn, 0, 0
 
-    def __call__(self, fn, want, label):
-        self.wrapper.launches = 0
+    def __call__(self, fn, want, label, scale=0):
+        self.pool.launches = self.bn.launches = 0
         out = fn()
-        made = self.wrapper.launches
+        made, bn_made, bn_want = self.pool.launches, self.bn.launches, bn_sites(want - scale, scale)
         check(made == want, f"{label}: {made} warp_pool launches, expected {want}")
+        check(bn_made == bn_want, f"{label}: {bn_made} batch_norm_act launches, expected {bn_want} "
+                                  f"({want - scale} known-skeleton and {scale} scale-head forwards)")
         self.total += made
+        self.bn_total += bn_made
         return out
 
 
@@ -2096,11 +2364,12 @@ def phase_streaming(wp_mod, models, tally, card):
                  lambda: tracker.predict_scales(rig, seq, hand)),
             ):
                 before = wp_mod.warp_pool.paths["vector"]
+                scale = head == "scale head"
                 streamed, state = tally(lambda: loop(tracker, step), EVAL_FRAMES,
-                                        f"{head}: {EVAL_FRAMES} track_frame calls")
+                                        f"{head}: {EVAL_FRAMES} track_frame calls", scale=scale * EVAL_FRAMES)
                 check(wp_mod.warp_pool.paths["vector"] == before + EVAL_FRAMES,
                       f"{head}: a track_frame call left the vector path")
-                ref = tally(whole, 1, f"{head}: the whole-sequence call")
+                ref = tally(whole, 1, f"{head}: the whole-sequence call", scale=int(scale))
                 if head == "scale head":
                     scales, valid, ref_state = ref
                     ref_res = FrameResult(streamed.joint_angles, streamed.wrist_xfs, valid,
@@ -2155,13 +2424,13 @@ def phase_unknown(models, tally, rigs, seqs, hands, card):
         batched = lambda: calibrate_sequences_batched(
             model, tracker.config, rigs, seqs, tracker.init_state(2 * s), hands, device="cuda")
         with tf32_off():
-            scales = tally(batched, 1, "calibrate_sequences_batched")
+            scales = tally(batched, 1, "calibrate_sequences_batched", scale=1)
             check(scales.shape == (s,) and bool(torch.isfinite(scales).all() & (scales > 0).all()),
                   f"batched scales {tuple(scales.shape)}")
             alone = torch.stack([
                 tally(lambda i=i: tracker.calibrate_sequence(
                     rigs.map(lambda a: a[i]), seqs.map(lambda a: a[i]), hands.map(lambda a: a[i])),
-                    1, "calibrate_sequence")
+                    1, "calibrate_sequence", scale=1)
                 for i in range(CALIBRATE_CHECKED)])
         gap = float((scales[:CALIBRATE_CHECKED] - alone).abs().max())
         check(gap <= bounds.scale, f"{name}: batched against per-sequence calibration: {gap}")
@@ -2201,7 +2470,8 @@ def phase_eval_apps(models, tally, card):
             out_dir = os.path.join(root, f"eval_results_{mode}", "real", "separate_hand")
             ms, errors = tally(
                 lambda: wall_ms(lambda: app.main(["--output-dir", out_dir] + common)),
-                per_seq * EVAL_SEQS, f"run_eval_{mode}.main on {EVAL_SEQS} sequences")
+                per_seq * EVAL_SEQS, f"run_eval_{mode}.main on {EVAL_SEQS} sequences",
+                scale=(per_seq - 1) * EVAL_SEQS)  # unknown: a calibration, then the known retrack
             check(len(errors) == EVAL_SEQS and bool(np.isfinite(errors).all()), f"{mode}: {errors}")
             log(f"[eval] run_eval_{mode}.main --synthetic {EVAL_SEQS} --synthetic-frames "
                 f"{EVAL_FRAMES} with the checkpoint: {ms / 1e3:.2f} s in all (model load, rendering, "
@@ -2357,7 +2627,7 @@ def phase_batched_eval(models, tally, rigs, seqs, hands, card):
         unknown = lambda: eval_sequences_unknown_batched(model, config, rigs, seqs, hands, generic)
         with tf32_off():
             per_seq, n_valid, mean = tally(known, 1, "eval_sequences_batched")
-            per_u, n_valid_u, mean_u, scales = tally(unknown, 2, "eval_sequences_unknown_batched")
+            per_u, n_valid_u, mean_u, scales = tally(unknown, 2, "eval_sequences_unknown_batched", scale=1)
             batched, _ = track_sequences_batched(model, config, rigs, seqs, make_batched_state(model, s), hands)
             gaps = [0.0] * 4  # rad, known mm, unknown mm, scale
             for i in range(CALIBRATE_CHECKED):
@@ -4258,8 +4528,9 @@ def phase_graph(wp_mod, models, tally, card):
     cuda = torch.device("cuda")
 
     def entries(tracker):
-        """(label, graphed, eager, capture input, replay inputs, calls a run):
-        graphed / eager map (input, state) to (result, state)."""
+        """(label, graphed, eager, capture input, replay inputs, init state,
+        the scale head's forwards a call): graphed / eager map (input,
+        state) to (result, state)."""
         model, config = tracker.model, tracker.config
 
         def frame(known, crops):
@@ -4291,21 +4562,22 @@ def phase_graph(wp_mod, models, tally, card):
         scale = frame(False, 2)
         return [
             ("track_frame, known skeleton", *known, (rig_a, frames_a[0], hand_a),
-             [(rig_b, f, hand_b) for f in frames_b], tracker.init_state),
+             [(rig_b, f, hand_b) for f in frames_b], tracker.init_state, 0),
             ("track_frame, scale head", *scale, (rig_a, frames_a[0], hand_a),
-             [(rig_b, f, hand_b) for f in frames_b], tracker.init_state),
+             [(rig_b, f, hand_b) for f in frames_b], tracker.init_state, 1),
             (f"track_sequence, chunks of {EVAL_CHUNK}", sequence(T._SEQUENCE), sequence(T._SEQUENCE.eager),
-             (rig_a, chunks_a[0], hand_a), [(rig_b, c, hand_b) for c in chunks_b], tracker.init_state),
+             (rig_a, chunks_a[0], hand_a), [(rig_b, c, hand_b) for c in chunks_b], tracker.init_state, 0),
             (f"track_sequences_batched S={S_BENCH} T={T_BENCH}", batched(T._SEQUENCES_BATCHED),
              batched(T._SEQUENCES_BATCHED.eager), batch_a, [batch_b],
-             lambda: tracker.init_state(2 * S_BENCH)),
+             lambda: tracker.init_state(2 * S_BENCH), 0),
         ]
 
     generic = from_dict(load_generic_hand_dict(), device="cuda")
 
     def more_entries(tracker):
         """The calibrations and the batched evals, as :func:`entries` with
-        the pool launches of a call and True (held bit for bit) added:
+        the pool launches of a call and True (held bit for bit) put before
+        the scale head's forwards:
         ``(result, state)`` each, the state threaded through the chunks of
         ``predict_scales_sequence``."""
         model, config = tracker.model, tracker.config
@@ -4328,29 +4600,31 @@ def phase_graph(wp_mod, models, tally, card):
         return [
             (f"calibrate_sequences_batched S={S_BENCH} T={T_BENCH}",
              *pair(T._CALIBRATE_BATCHED, many, n_calibration_samples=30, min_num_crops=2),
-             batch_a, [batch_b], batched_state, 1, True),
+             batch_a, [batch_b], batched_state, 1, True, 1),
             (f"predict_scales_sequence, chunks of {EVAL_CHUNK}",
              *pair(T._PREDICT_SCALES, one, result=lambda out, _: (out[:2], out[2]), min_num_crops=2),
-             (rig_a, chunks_a[0], hand_a), [(rig_b, c, hand_b) for c in chunks_b], tracker.init_state, 1, True),
+             (rig_a, chunks_a[0], hand_a), [(rig_b, c, hand_b) for c in chunks_b], tracker.init_state, 1, True,
+             1),
             (f"calibrate_sequence, {EVAL_FRAMES} frames",
              *pair(T._CALIBRATE, one, n_calibration_samples=30),
-             (rig_a, seq_a, hand_a), [(rig_b, seq_b, hand_b)], tracker.init_state, 1, True),
+             (rig_a, seq_a, hand_a), [(rig_b, seq_b, hand_b)], tracker.init_state, 1, True, 1),
             (f"eval_sequences_batched S={S_BENCH} T={T_BENCH}",
              *pair(PE._EVAL_BATCHED, lambda x, state: dict(many(x, state), skel_hand_models_mm=None,
                                                              lm_hand_models_mm=None), min_num_crops=1),
-             batch_a, [batch_b], batched_state, 1, True),
+             batch_a, [batch_b], batched_state, 1, True, 0),
             (f"eval_sequences_unknown_batched S={S_BENCH} T={T_BENCH}",
              *pair(PE._EVAL_UNKNOWN, lambda x, _: dict(rigs=x[0], seqs=x[1], hand_models_mm=x[2],
                                                         generic_hand_model_mm=generic),
                    n_calibration_samples=30, min_num_crops=1),
-             batch_a, [batch_b], batched_state, 2, True),
+             batch_a, [batch_b], batched_state, 2, True, 1),
         ]
 
-    def run_all(fn, inputs, init, counted=None, n_pool=1):
+    def run_all(fn, inputs, init, counted=None, n_pool=1, n_scale=0):
         """``fn`` over ``inputs`` with the state threaded; results of each."""
         state, outs = init(), []
         for x in inputs:
-            out = counted(lambda: fn(x, state), n_pool, "a compiled call") if counted else fn(x, state)
+            out = (counted(lambda: fn(x, state), n_pool, "a compiled call", scale=n_scale) if counted
+                   else fn(x, state))
             state = out[1]
             outs.append(out)
         return outs
@@ -4359,17 +4633,18 @@ def phase_graph(wp_mod, models, tally, card):
     for wname, m32, m16 in models:
         for dname, model in (("f32 (TF32)", m32), ("bf16", m16)):
             tracker = HandTracker(model, device="cuda")
-            served = [e + (1, False) for e in entries(tracker)]
+            served = [e[:6] + (1, False, e[6]) for e in entries(tracker)]
             more = more_entries(tracker) if model is models[0][1] else []  # seeded weights, f32
-            for label, graphed, eager, capture_in, replay_in, init, n_pool, strict in served + more:
+            for label, graphed, eager, capture_in, replay_in, init, n_pool, strict, n_scale in served + more:
                 full = f"{label}, {dname}, {wname}"
                 n_before = len(compiled.cached())
-                tally(lambda: graphed(capture_in, init()), n_pool, f"[graph] {full}: the capturing call")
+                tally(lambda: graphed(capture_in, init()), n_pool, f"[graph] {full}: the capturing call",
+                      scale=n_scale)
                 captured = compiled.last_capture()
                 check(captured is not None and captured.launched[0][0] == n_pool,
                       f"[graph] {full}: the capture recorded {captured and captured.launched[0]} pool launches")
-                outs_g = run_all(graphed, replay_in, init, tally, n_pool)
-                outs_e = run_all(eager, replay_in, init, tally, n_pool)
+                outs_g = run_all(graphed, replay_in, init, tally, n_pool, n_scale)
+                outs_e = run_all(eager, replay_in, init, tally, n_pool, n_scale)
                 same, gap = True, 0.0
                 for g, e in zip(outs_g, outs_e):
                     s, d = tree_gap(g, e) if strict else hold_graph(g, e, full)
@@ -4393,7 +4668,7 @@ def phase_graph(wp_mod, models, tally, card):
     model = gate_weights(make_model(ModelConfig(), device="cuda"))
     ckpt = models[-1][1]
     tracker = HandTracker(model, device="cuda")
-    for label, graphed, eager, capture_in, replay_in, init in entries(tracker):
+    for label, graphed, eager, capture_in, replay_in, init, _ in entries(tracker):
         x = replay_in[0]
         graphed(capture_in, init())
         captured_on = compiled.last_capture()
@@ -4424,7 +4699,7 @@ def phase_graph(wp_mod, models, tally, card):
     del model, tracker
 
     phase_graph_oor()
-    rows.update(graph_times(models[0], lambda tr: [e + (1, False) for e in entries(tr)] + (
+    rows.update(graph_times(models[0], lambda tr: [e[:6] + (1, False, e[6]) for e in entries(tr)] + (
         more_entries(tr) if tr.model is models[0][1] else []), run_all, card))
     free_card()
     return rows
@@ -4447,7 +4722,7 @@ def graph_times(seeded, entries, run_all, card):
     _, m32, m16 = seeded
     for dname, model in (("f32 (TF32)", m32), ("bf16", m16)):
         tracker = HandTracker(model, device="cuda")
-        for label, graphed, eager, capture_in, replay_in, init, _, strict in entries(tracker):
+        for label, graphed, eager, capture_in, replay_in, init, _, strict, _ in entries(tracker):
             if label.startswith("track_frame, scale"):
                 continue
             row = {}
@@ -4509,6 +4784,21 @@ def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
     }
 
 
+def bn_entry(rows, edge_err, by_path):
+    """The one-pass BatchNorm's line of the kernel table: its times at the
+    stem's f32 shape, every shape in ``shapes``."""
+    stem = rows[0]
+    return {
+        "name": "batch_norm_act", "route": "cuda", "source": "umetrack_torch/csrc/bn_act.cu",
+        "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max([edge_err] + [row["max_abs_err"] for row in rows]), "shapes": rows,
+        "ms": stem["ms"], "kernel_ms": stem["kernel_ms"], "plain_ms": stem["plain_ms"],
+        "bound_ms": stem["bound_ms"], "bound_by": stem["bound_by"], "library_ms": stem["library_ms"],
+        "library": "the unfused PyTorch sequence (the plain version), which the port no longer calls "
+                   "on the card",
+    }
+
+
 def free_card():
     """Drop the compiled steps' graphs and the allocator's cached blocks
     between phases."""
@@ -4543,9 +4833,12 @@ def main():
     image_kern = phase_image_kernels(wi_mod, wp_mod, pool_operands, card)
     del pool_operands
     free_card()
+    bn_rows, bn_edge_err = phase_bn_act(card)
+    free_card()
+    from umetrack_torch.ops.bn_act import batch_norm_act
 
     model_cuda = gate_weights(make_model(ModelConfig(), device="cuda"))
-    pool_launches = phase_slice(wp_mod, model_cuda, rigs, seqs, hands, card)
+    pool_launches, bn_slice = phase_slice(wp_mod, model_cuda, rigs, seqs, hands, card)
     tracker = HandTracker(model_cuda, device="cuda")
     phase_profile(lambda: tracker.track_sequences_batched(rigs, seqs, hands),
                   "one track_sequences_batched call", "warp_pool_kernel", card)
@@ -4553,7 +4846,7 @@ def main():
     # the bf16 paths: ``bf16_tally`` sets the pool kernel's counter to 0 just
     # before each of their entry-point calls and reads it just after
     model16 = gate_weights(make_model(ModelConfig(compute_dtype=BF16), device="cuda"))
-    bf16_tally = LaunchTally(wp_mod.warp_pool)
+    bf16_tally = LaunchTally(wp_mod.warp_pool, batch_norm_act)
     bf16_ms = phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
     bf16_tracker_launches = bf16_tally.total
     del rigs, seqs, hands
@@ -4580,20 +4873,20 @@ def main():
 
     # the compiled steps: each capturing, replayed and eager call counted from 0
     t_graph = time.perf_counter()
-    graph_tally = LaunchTally(wp_mod.warp_pool)
+    graph_tally = LaunchTally(wp_mod.warp_pool, batch_norm_act)
     phase_graph(wp_mod, [("seeded weights", model_cuda, model16), ("checkpoint", ckpt_cuda, ckpt16)],
                 graph_tally, card)
     log(f"[graph] the phase took {time.perf_counter() - t_graph:.1f} s, {graph_tally.total} warp_pool "
         f"launches over its tracker calls")
-    tally = LaunchTally(wp_mod.warp_pool)
+    tally = LaunchTally(wp_mod.warp_pool, batch_norm_act)
     eval_shapes = phase_streaming(wp_mod, models, tally, card)
     rigs, seqs, hands = make_sequences(S_BENCH, T_BENCH, seed=0, device="cuda")
     phase_unknown(models, tally, rigs, seqs, hands, card)
-    orbax_tally = LaunchTally(wp_mod.warp_pool)
+    orbax_tally = LaunchTally(wp_mod.warp_pool, batch_norm_act)
     phase_orbax(ckpt_cuda, orbax_tally, rigs, seqs, hands, zstd_build_s, card)
 
     # the batched and sharded evaluation, each entry-point call counted from 0
-    batch_tally = LaunchTally(wp_mod.warp_pool)
+    batch_tally = LaunchTally(wp_mod.warp_pool, batch_norm_act)
     unsharded = phase_batched_eval(models, batch_tally, rigs, seqs, hands, card)
     phase_process_group(model_cuda, batch_tally, rigs, seqs, hands, unsharded, card)
     log(f"[batched-eval] warp_pool launches over the batched evaluation's entry-point calls: "
@@ -4612,7 +4905,7 @@ def main():
                             ("checkpoint", ckpt_cpu, ckpt_cuda, TRAINED_CPU)])
 
     # the raw_data evaluation in bf16: the checkpoint's weights in a bf16 model
-    eval16_tally = LaunchTally(wp_mod.warp_pool)
+    eval16_tally = LaunchTally(wp_mod.warp_pool, batch_norm_act)
     phase_bf16_streaming(wp_mod, [("seeded weights", model16, BF16_LOOP),
                                   ("checkpoint", ckpt16, BF16_LOOP_TRAINED)], eval16_tally, card)
     phase_bf16_eval_app(eval16_tally, f32_known, card)
@@ -4670,6 +4963,11 @@ def main():
                       **{f"accuracy: {label}": got[1] for label, got in acc.items() if got[1]},
                       **bench_launches["warp_image_full"]},
                      image_kern["warp_image_full"], [train_rows["warp_image_full"], acc_full_row]),
+        bn_entry(bn_rows, bn_edge_err,
+                 {"tracker": bn_slice, "compiled steps": graph_tally.bn_total, "raw_data eval": tally.bn_total,
+                  "batched eval": batch_tally.bn_total, "orbax checkpoint tracker": orbax_tally.bn_total,
+                  "bf16 tracker and batched eval": bf16_tally.bn_total,
+                  "bf16 raw_data eval": eval16_tally.bn_total}),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

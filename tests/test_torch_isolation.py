@@ -39,7 +39,7 @@ NEW_MODULES = (
     "data/native.py",
     "utils/_zstd.py", "utils/ocdbt.py", "utils/orbax.py",
     "scripts/resident_train.py", "scripts/diagnose_ckpt.py", "scripts/accuracy_loop.py",
-    "bench.py", "tracker/compiled.py",
+    "bench.py", "tracker/compiled.py", "ops/bn_act.py",
 )
 
 

@@ -15,6 +15,13 @@ parameters and buffers stay f32; :class:`Conv` and :class:`Dense` cast
 their input, weight and bias to the compute dtype and compute in it;
 :class:`BatchNorm` normalises in f32 and rounds once to the compute dtype;
 ReLU, max-pool and the residual add run in the compute dtype.
+
+In eval mode, with nothing for autograd to record (:func:`one_pass`), each
+BatchNorm and what follows it up to the next convolution (the residual
+add, ReLU, the stem's max-pool, and on a CUDA device the preceding conv's
+bias: :meth:`Conv.without_bias`) is one pass of ``ops/bn_act.py``, with the
+same rounding; train mode and a forward that needs gradients run the ops
+one by one.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.bn_act import batch_norm_act
 from .config import ModelConfig
 
 BN_EPS = 1e-5
@@ -46,9 +54,9 @@ class Conv(nn.Conv2d):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
         d = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(d)
+        bias = None if self.bias is None or not with_bias else self.bias.to(d)
         if self.model_group is None:
             return self._conv_forward(x.to(d), self.weight.to(d), bias)
         from ..parallel.collectives import copy_to_model, gather_from_model
@@ -56,6 +64,17 @@ class Conv(nn.Conv2d):
         g = self.model_group
         y = gather_from_model(self._conv_forward(copy_to_model(x.to(d), g), self.weight.to(d), None), 1, g)
         return y if bias is None else y + bias[:, None, None]
+
+    def without_bias(self, x: torch.Tensor):
+        """(the convolution, the f32 bias it left for the next pass to add).
+        On a CUDA device, where PyTorch adds a convolution's bias in a pass
+        of its own after cuDNN's, the bias is left; on the CPU, whose
+        convolutions add it inside their accumulation, and over a model
+        group, which adds it after the gather, the convolution adds its own
+        and leaves None."""
+        if self.bias is None or self.model_group is not None or x.device.type != "cuda":
+            return self(x), None
+        return self(x, with_bias=False), self.bias
 
 
 class Dense(nn.Linear):
@@ -147,6 +166,19 @@ class BatchNorm(nn.BatchNorm2d):
         return (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
 
 
+def one_pass(x: torch.Tensor, *modules: nn.Module) -> bool:
+    """Whether the BatchNorms in ``modules`` run as one pass with what
+    follows them (``ops/bn_act.py``), given the input ``x`` of the first of
+    ``modules``: none of them in train mode, nothing for autograd to record
+    (grad mode off, or neither ``x`` nor a parameter of ``modules``
+    requires grad).  The layout is the kernel's to check: on a CUDA device
+    it takes NCHW samples and refuses any other."""
+    if any(m.training for mod in modules for m in mod.modules() if isinstance(m, nn.BatchNorm2d)):
+        return False
+    return not torch.is_grad_enabled() or not (
+        x.requires_grad or any(p.requires_grad for mod in modules for p in mod.parameters()))
+
+
 class BasicBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN + residual (with 1x1 downsample) -> ReLU."""
 
@@ -163,6 +195,12 @@ class BasicBlock(nn.Module):
         self.use_downsample = use_downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if one_pass(x, self):
+            y = self.conv2(batch_norm_act(self.conv1(x), self.bn1))
+            if self.use_downsample:
+                return batch_norm_act(y, self.bn2, residual=self.downsample_conv(x),
+                                      residual_norm=self.downsample_bn)
+            return batch_norm_act(y, self.bn2, residual=x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         residual = x
@@ -197,8 +235,12 @@ class ResNetBackbone(nn.Module):
                               compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
-        x = F.max_pool2d(x, 2, 2)
+        if one_pass(x, self.stem_conv, self.stem_bn):
+            y, bias = self.stem_conv.without_bias(x)
+            x = batch_norm_act(y, self.stem_bn, conv_bias=bias, pool=True)
+            del y  # the unpooled activation (4x the pooled one) is not kept through the stages
+        else:
+            x = F.max_pool2d(F.relu(self.stem_bn(self.stem_conv(x))), 2, 2)
         for name in self.blocks:
             x = getattr(self, name)(x)
         return self.proj_conv(x)

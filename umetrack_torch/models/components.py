@@ -17,7 +17,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._tree import TensorTree
-from .backbone import BasicBlock, BatchNorm, Conv, Dense
+from ..ops.bn_act import batch_norm_act
+from .backbone import BasicBlock, BatchNorm, Conv, Dense, one_pass
 from .config import ModelConfig
 from .procrustes import procrustes_align
 
@@ -38,7 +39,12 @@ class MultiViewFusion(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_blocks):
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"bn{i}")
+            if one_pass(x, conv, bn):
+                y, bias = conv.without_bias(x)
+                x = batch_norm_act(y, bn, conv_bias=bias)
+            else:
+                x = F.relu(bn(conv(x)))
         return self.conv_out(x)
 
 
@@ -78,6 +84,8 @@ class SkeletonEncoder(nn.Module):
         b = joint_rotation_axes.shape[0]
         feats = torch.cat([joint_rotation_axes, joint_rest_positions], dim=-1).reshape(b, -1)
         x = self.linear(feats).view(b, self.out_channels, *self.feature_map_size)
+        if one_pass(x, self.bn):
+            return batch_norm_act(x, self.bn)
         return F.relu(self.bn(x))
 
 

@@ -41,11 +41,11 @@ an evicted graph is reset, which hands its memory pool back to PyTorch's
 allocator.  A failed capture raises with the key and the cause: there is
 no eager fallback on the card.  On the CPU a step runs directly.
 
-The warp kernels count their launches in Python (``ops/warp_pool.py``,
-``ops/warp_image.py``), where they are launched, and a replay runs no
-Python.  So the launches a capture records are taken back off the counters
-(nothing ran), and each replay adds them again: the counters go on
-counting the kernels that ran on the card.
+The port's kernels count their launches in Python (``ops/warp_pool.py``,
+``ops/warp_image.py``, ``ops/bn_act.py``), where they are launched, and a
+replay runs no Python.  So the launches a capture records are taken back
+off the counters (nothing ran), and each replay adds them again: the
+counters go on counting the kernels that ran on the card.
 
 Under a profile, a call's host time is split into the spans ``step.key``
 (the key), ``step.stage`` (the copies into the static inputs),
@@ -64,12 +64,14 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from ..ops.bn_act import batch_norm_act
 from ..ops.warp_image import warp_image_full, warp_image_windowed
 from ..ops.warp_pool import warp_pool
 from ..utils.profiling import span
 
 CAPACITY = 4  # graphs kept, over all steps
-COUNTED = (warp_pool, warp_image_full, warp_image_windowed)  # wrappers with launch counters
+# wrappers with launch counters
+COUNTED = (warp_pool, warp_image_full, warp_image_windowed, batch_norm_act)
 
 
 def backend_flags() -> tuple:
