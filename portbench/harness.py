@@ -138,9 +138,13 @@ def context(cell_name: str, seed: int, seconds: float, trace: bool, device, t_st
     """The context of a run of ``cell_name``; ``cell`` and ``config``
     replace keys of the cell's and the configuration's files (the tests'
     tiny sizes); ``control`` runs the program in the precision below the
-    configuration's (the comparison's control)."""
+    configuration's (the comparison's control).  A configuration whose
+    reference module or draw is wrong is refused here, before set-up."""
+    from .weights import draw_for
+
     cell_file = {**load_cell(cell_name), **(cell or {})}
     config_file = {**load_config(cell_file["config"]), **(config or {})}
+    draw_for(config_file)
     return Context(cell_name=cell_name, cell=cell_file, config=config_file, seed=seed,
                    seconds=seconds, trace=trace, device=torch.device(device), t_start=t_start,
                    control=control, root=root)

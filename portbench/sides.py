@@ -7,11 +7,19 @@ Both packages lay out their tracker, kinematics and model alike, so one
 :class:`~portbench.traffic.Recording`'s tensors and its model from a
 configuration file and a state dict.  The program is imported only when
 its side is asked for.
+
+The program always builds its model from ``umetrack_torch.models``, whose
+``ModelConfig`` chooses the architecture.  A configuration of another
+architecture names the reference's module, ``"reference_module":
+"portbench.reference.models.<arch>"`` (left out: ``portbench.reference.models``),
+which exports ``ModelConfig`` and ``UmeTrackNet``; the reference's tracker
+and kinematics stay its package's own.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import re
 from typing import Dict, Optional
 
 import torch
@@ -20,6 +28,20 @@ from .traffic import FRAME_FIELDS, HAND_FIELDS, RIG_FIELDS, Recording
 
 PROGRAM = "umetrack_torch"
 REFERENCE = "portbench.reference"
+MODEL_EXPORTS = ("ModelConfig", "UmeTrackNet")
+DOTTED = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*(\.[A-Za-z_][A-Za-z0-9_]*)*$")
+
+
+def reference_module(config: dict) -> str:
+    """The module the reference takes the configuration's model from,
+    checked by its name alone (nothing is imported): one inside
+    :mod:`portbench.reference`, so that the reference never imports the
+    program."""
+    name = config.get("reference_module", f"{REFERENCE}.models")
+    if not (isinstance(name, str) and DOTTED.match(name) and name.startswith(REFERENCE + ".")):
+        raise ValueError(f"configuration {config.get('name')!r}: reference_module {name!r} "
+                         f"is not a module inside {REFERENCE}")
+    return name
 
 
 @dataclasses.dataclass
@@ -46,17 +68,30 @@ class Side:
             k: None if fields[k] is None else (fields[k] if rows is None else fields[k][rows])
             for k in HAND_FIELDS})
 
+    def models_for(self, config: dict):
+        """The module this side takes ``config``'s model from: the
+        program's own ``models``; for the reference, the configuration's
+        :func:`reference_module`."""
+        if self.package != REFERENCE:
+            return self.models
+        name = reference_module(config)
+        module = importlib.import_module(name)
+        missing = [k for k in MODEL_EXPORTS if not hasattr(module, k)]
+        if missing:
+            raise ValueError(f"{name} does not export {', '.join(missing)}")
+        return module
+
     def model_config(self, config: dict, compute_dtype: Optional[str] = None):
         widths = {k: tuple(v) if isinstance(v, list) else v for k, v in config["model"].items()}
         if compute_dtype is not None:
             widths["compute_dtype"] = compute_dtype
-        return self.models.ModelConfig(**widths)
+        return self.models_for(config).ModelConfig(**widths)
 
     def model(self, config: dict, state_dict: Dict[str, torch.Tensor], device,
               compute_dtype: Optional[str] = None):
         """The model of ``config`` with ``state_dict`` loaded, on ``device``,
         in eval mode."""
-        model = self.models.UmeTrackNet(self.model_config(config, compute_dtype)).to(device)
+        model = self.models_for(config).UmeTrackNet(self.model_config(config, compute_dtype)).to(device)
         model.load_state_dict(state_dict)
         return model.eval()
 

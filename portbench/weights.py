@@ -11,13 +11,16 @@ under the benchmark would change every cell's numbers.
 dense kernels ``lecun_normal``: a normal of std 1/sqrt(fan_in) truncated at
 two of its stds; zero biases; BatchNorm scale 1, bias 0, running mean 0,
 running var 1) on the device from a ``torch.Generator``, in one draw for
-all kernels.
+all kernels.  ``{"draw": "<name>"}`` for any other name calls
+``draw_<name>(model, seed)`` of the module the configuration's reference
+takes its model from (:func:`portbench.sides.reference_module`), which
+draws that architecture's own initial distribution in place.
 """
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -42,20 +45,39 @@ def trained_state_dict(weights: dict, root: str = ".") -> Dict[str, torch.Tensor
     return from_flax_variables(unpackb(data))
 
 
-def state_dict_for(config: dict, seed: int, device, root: str = ".") -> Dict[str, torch.Tensor]:
-    """The weights the configuration names: ``{"file", "sha256"}`` read from
-    the checkpoint, or ``{"draw": "flax_init"}`` drawn from ``seed`` on
-    ``device``."""
-    weights = config["weights"]
-    if "file" in weights:
-        return trained_state_dict(weights, root)
-    if weights.get("draw") != "flax_init":
-        raise ValueError(f"unknown weights {weights!r}")
+def draw_for(config: dict) -> Optional[Callable]:
+    """The function that draws the configuration's weights into its
+    reference model, ``None`` for a checkpoint.  A reference module outside
+    the reference, one that lacks the model's exports, or a draw it does not
+    have is refused here, which :func:`portbench.harness.context` calls
+    before set-up."""
     from .sides import REFERENCE, side
 
+    models = side(REFERENCE).models_for(config)
+    weights = config["weights"]
+    if "file" in weights:
+        return None
+    name = weights.get("draw")
+    draw = draw_flax_init if name == "flax_init" else getattr(models, f"draw_{name}", None)
+    if not callable(draw):
+        raise ValueError(f"unknown weights {weights!r}: {models.__name__} has no draw_{name}")
+    return draw
+
+
+def state_dict_for(config: dict, seed: int, device, root: str = ".") -> Dict[str, torch.Tensor]:
+    """The weights the configuration names: ``{"file", "sha256"}`` read from
+    the checkpoint, or ``{"draw": "<name>"}`` drawn from ``seed`` on
+    ``device`` into the reference's model of ``config``."""
+    from .sides import REFERENCE, side
+
+    draw = draw_for(config)
+    if draw is None:
+        return trained_state_dict(config["weights"], root)
     ref = side(REFERENCE)
-    model = ref.models.UmeTrackNet(ref.model_config(config)).to(device)
-    return draw_flax_init(model, seed).state_dict()
+    model = ref.models_for(config).UmeTrackNet(ref.model_config(config)).to(device)
+    with torch.no_grad():
+        draw(model, seed)
+    return model.state_dict()
 
 
 @torch.no_grad()
