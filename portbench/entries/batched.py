@@ -30,6 +30,11 @@ from ..sides import PROGRAM, REFERENCE, side
 from ..traffic import call_frames, generic_hand, render_recording, check_rng
 from ..weights import state_dict_for
 
+# The CPU tests' rehearsal of a cell on this entry (never read by a run):
+# its traffic cut to a few rendered frames, since the CPU renders ~2 s a frame.
+REHEARSAL = dict(sequences=2, frames=3, frames_per_call=2, calls=[[0, 1], [2, -1]], check_calls=1,
+                 n_calibration_samples=3)
+
 
 class Session:
     def __init__(self, ctx):

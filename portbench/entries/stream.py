@@ -26,6 +26,9 @@ from ..traffic import FRAME_FIELDS, pingpong, render_recording, check_rng
 from ..weights import state_dict_for
 
 WARMUP_FRAMES = 3  # the capture, then replays from the carried state's strides
+# The CPU tests' rehearsal of a cell on this entry (never read by a run):
+# its traffic cut to a few rendered frames, since the CPU renders ~2 s a frame.
+REHEARSAL = dict(frames=3, check_frames=2)
 
 
 class Session:

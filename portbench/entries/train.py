@@ -43,6 +43,12 @@ from ..traffic import render_recording
 from ..weights import state_dict_for
 
 NEGLIGIBLE = 1e-3  # a leaf whose reference gradient is under this share of the median leaf's
+# The CPU tests' rehearsal of a cell on this entry (never read by a run): its
+# traffic cut to a few rendered frames, and its model to a small width, since
+# a training step at full width takes minutes on the CPU.
+REHEARSAL = dict(sequences=2, frames=3, seqs_per_batch=2, window=3)
+REHEARSAL_MODEL = dict(start_planes=8, backbone_blocks=[1, 1, 1, 1], n_image_feature_channels=12,
+                       n_memory_channels=6)
 
 
 def draw_window(rng: np.random.Generator, n_sequences: int, seqs_per_batch: int, n_starts: int,

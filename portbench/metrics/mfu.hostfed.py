@@ -1,0 +1,4 @@
+"""``mfu.batched``'s reading, in the host-fed cell."""
+from portbench.harness import load_reader
+
+read = load_reader("mfu.batched")

@@ -4,12 +4,14 @@ harness or the reference imports is the JAX package or JAX.
 
 Run: ``python -m pytest portbench/tests -q`` from the checkout's root.
 """
+import importlib
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+import types
 
 import pytest
 import torch
@@ -23,26 +25,27 @@ METRICS = BENCHMARK["end_to_end"] + BENCHMARK["per_layer"]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FORBIDDEN = harness.FORBIDDEN
-SMALL = dict(start_planes=8, backbone_blocks=[1, 1, 1, 1], n_image_feature_channels=12,
-             n_memory_channels=6)
-# each cell's traffic cut to a few rendered frames (the CPU renders ~2 s a frame)
-TINY = {
-    "batched": dict(sequences=2, frames=3, frames_per_call=2, calls=[[0, 1], [2, -1]],
-                    check_calls=1, n_calibration_samples=3),
-    "stream": dict(frames=3, check_frames=2),
-    "train": dict(sequences=2, frames=3, seqs_per_batch=2, window=3),
-}
 
 
 def tiny_overrides(cell: str) -> dict:
-    """A few rendered frames; the tracking cells keep their model and
-    weights (the checkpoint's answers differ from row to row, as a fault
-    must be seen to change them), the train cell a small model."""
+    """The cell's traffic with the ``REHEARSAL`` keys its entry declares,
+    and its model with the entry's ``REHEARSAL_MODEL`` and then its
+    configuration's ``"rehearsal_model"`` widths, where either declares
+    them.  The tracking entries declare no model: their cells keep the
+    configured model and weights (the checkpoint's answers differ from row
+    to row, as a fault must be seen to change them); the train entry
+    declares a small model."""
     spec = harness.load_cell(cell)
     config = harness.load_config(spec["config"])
-    overrides = dict(cell={"traffic": {**spec["traffic"], **TINY[spec["entry"]]}})
-    if spec["entry"] == "train":
-        overrides["config"] = {"model": {**config["model"], **SMALL}}
+    entry = importlib.import_module(f"portbench.entries.{spec['entry']}")
+    if not hasattr(entry, "REHEARSAL"):
+        raise LookupError(
+            f"portbench/entries/{spec['entry']}.py declares no REHEARSAL: add REHEARSAL = dict(...), "
+            "the traffic keys the CPU tests replace in its cells' traffic, cut to a few rendered frames")
+    overrides = dict(cell={"traffic": {**spec["traffic"], **entry.REHEARSAL}})
+    model = {**getattr(entry, "REHEARSAL_MODEL", {}), **config.get("rehearsal_model", {})}
+    if model:
+        overrides["config"] = {"model": {**config["model"], **model}}
     return overrides
 
 
@@ -98,6 +101,15 @@ def test_every_cell_reports_what_the_contract_asks():
         for m in harness.metrics_of(BENCHMARK, cell, per_layer=True):
             moved = next(e for e in BENCHMARK["end_to_end"] if e["name"] == m["moves"])
             assert cell in moved.get("workloads", [cell]), (cell, m["name"])
+
+
+def test_an_entry_without_a_rehearsal_names_what_to_add(monkeypatch):
+    bare = types.ModuleType("portbench.entries._bare")
+    monkeypatch.setitem(sys.modules, bare.__name__, bare)
+    spec = {**harness.load_cell(CELLS[0]), "entry": "_bare"}
+    monkeypatch.setattr(harness, "load_cell", lambda name: spec)
+    with pytest.raises(LookupError, match=r"portbench/entries/_bare\.py declares no REHEARSAL: add REHEARSAL"):
+        tiny_overrides(CELLS[0])
 
 
 @pytest.mark.parametrize("cell", CELLS)

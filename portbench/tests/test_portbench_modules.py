@@ -8,8 +8,10 @@ it names: here a small alternative assembly (``UmeTrackNet`` with a
 patch-attention image trunk in place of the ResNet, and a ``ModelConfig``
 with the trunk's widths), written once below, registered for the test under
 the reference's package, and put in the program's ``models`` as a program
-that adds the architecture would.  A module outside the reference, or a draw
-it does not have, is refused before set-up.
+that adds the architecture would.  Each configuration that names a module
+draws the program's state dict, at the widths the CPU tests build it at.  A
+module outside the reference, or a draw it does not have, is refused before
+set-up.
 
 Run: ``python -m pytest portbench/tests -q`` from the checkout's root.
 """
@@ -21,11 +23,15 @@ import pytest
 import torch
 
 from portbench import faults, harness, sides, weights
+from portbench.entries import batched
+from portbench.entries.train import REHEARSAL_MODEL as SMALL
 from portbench.reference.data._msgpack import unpackb
 from portbench.reference.models.convert import from_flax_variables
-from portbench.tests.test_portbench_harness import BENCHMARK, FORBIDDEN, ROOT, SMALL, TINY, _imported
+from portbench.tests.test_portbench_harness import BENCHMARK, FORBIDDEN, ROOT, _imported
 
 CONFIGS = [c["name"] for c in BENCHMARK["configs"]]
+NAMED = [c for c in CONFIGS if "reference_module" in harness.load_config(c)]
+PLAIN = [c for c in CONFIGS if c not in NAMED]
 ASSEMBLY = '''
 """UmeTrackNet with a patch-attention image trunk in place of the ResNet."""
 import dataclasses
@@ -152,7 +158,7 @@ def refused_context(config: dict, match: str):
         harness.context("known.batched", 1, 1.0, False, "cpu", time.perf_counter(), ROOT, config=config)
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", PLAIN)
 def test_a_configuration_without_a_reference_module_builds_and_draws_as_before(name):
     """Each side resolves to its package's ``models``; the drawn or read
     state dict is what the lookup-free path gives, key for key and bit for
@@ -177,6 +183,32 @@ def test_a_configuration_without_a_reference_module_builds_and_draws_as_before(n
         assert list(got) == list(want) and set(want) == port_keys
         for key in want:
             assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("name", NAMED + [PROGRAM_ASSEMBLY])
+def test_a_configuration_naming_a_reference_module_draws_the_programs_state_dict(name, request):
+    """Each configuration of ``BENCHMARK.json`` that names a reference
+    module, and this file's assembly: the weights drawn or read for it have
+    exactly the keys, shapes and dtypes of the program's
+    ``UmeTrackNet(ModelConfig(**model))``, at the configuration's
+    ``"rehearsal_model"`` widths where it declares them (the CPU's sizes);
+    two draws at one seed are equal bit for bit, and drawn weights differ
+    between two seeds."""
+    if name == PROGRAM_ASSEMBLY:
+        request.getfixturevalue("assembly")
+        config = alt_config()
+    else:
+        config = harness.load_config(name)
+        config = {**config, "model": {**config["model"], **config.get("rehearsal_model", {})}}
+    models = sides.side(sides.PROGRAM).models
+    want = models.UmeTrackNet(models.ModelConfig(**widths(config))).state_dict()
+    a, b, c = (weights.state_dict_for(config, seed, "cpu", ROOT) for seed in (7, 7, 2**31 + 5))
+    assert set(a) == set(want)
+    for key in want:
+        assert (a[key].shape, a[key].dtype) == (want[key].shape, want[key].dtype), key
+        assert torch.equal(a[key], b[key]), key
+    if "draw" in config["weights"]:
+        assert any(not torch.equal(a[key], c[key]) for key in a)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -278,7 +310,7 @@ def test_the_batched_entry_runs_another_architecture_on_both_sides(assembly, fau
     cell = "known.batched"
     spec = harness.load_cell(cell)
     ctx = harness.context(cell, 2**31 + 9, 1.0, False, "cpu", time.perf_counter(), ROOT,
-                          cell={"traffic": {**spec["traffic"], **TINY["batched"]}}, config=alt_config())
+                          cell={"traffic": {**spec["traffic"], **batched.REHEARSAL}}, config=alt_config())
     if fault is None:
         result = harness.run_cell(ctx, BENCHMARK)
         assert result["correct"] is True, result["compared"]

@@ -31,8 +31,11 @@ def sides():
 
 
 def models(sides, compute_dtype="float32"):
+    """Both sides' models at the frozen reference's fields, cut by SMALL:
+    the program's ``ModelConfig`` takes each of them, and a field it adds
+    for another architecture keeps its default."""
     port, ref = sides
-    config = {"model": {**dataclasses.asdict(port.models.ModelConfig()), **SMALL,
+    config = {"model": {**dataclasses.asdict(ref.models.ModelConfig()), **SMALL,
                         "compute_dtype": compute_dtype}}
     m_ref = draw_flax_init(ref.models.UmeTrackNet(ref.model_config(config)), 7).eval()
     m_port = port.models.UmeTrackNet(port.model_config(config)).eval()
