@@ -32,12 +32,17 @@ exits non-zero without a result line:
    channels, the regressors' blocks at 76 and 72; the skeleton encoder's
    128 x 4 x 6 x 6) and on edge cases (the scalar path, planes smaller
    than a vector, a conv bias without the pool, channel slices, misaligned
-   pointers, NaN and inf): the path taken, the max abs error, ms a call,
-   the kernel's device time, its byte bound and share, the plain version's
-   ms (the unfused PyTorch sequence the model ran before); its launches are
-   counted over the main paths' entry-point calls alone, each call checked
-   against the model's sites (32 a known-skeleton forward, 31 a scale
-   head's);
+   pointers, NaN and inf), each in NCHW and in channels-last (NHWC, the
+   layout of an eval-mode forward on the card with TF32 or bf16): the path
+   taken, the max abs error, ms a call, the kernel's device time, its byte
+   bound and share, the plain version's ms (the unfused PyTorch sequence
+   the model ran before); its launches are counted over the main paths'
+   entry-point calls alone, each call checked against the model's sites
+   (32 a known-skeleton forward, 31 a scale head's), by path and layout,
+   and the backbone's forwards by layout (``batch_norm_act.formats``: one a
+   pool launch); ``[layout]``: cuDNN's NCHW<->NHWC transposes and the
+   device time by kind in one replay of a track_sequences_batched call at
+   S=64 x T=16, channels-last and with NCHW forced;
 4. ``track_sequences_batched`` at the full width of ``ModelConfig()`` (f32),
    S=64, T=16, seeded random weights: one kernel launch per call, finite
    outputs, wall time per call and frames/s; then one call under
@@ -213,6 +218,7 @@ It needs CUDA and the repository around it; without either it exits
 non-zero.
 """
 import argparse
+import collections
 import json
 import math
 import os
@@ -1157,8 +1163,9 @@ def bn_norm(c, seed):
     return norm.cuda()
 
 
-def bn_operands(form, n, c, h, w, dtype, seed):
-    """``batch_norm_act``'s keyword arguments for ``form`` on random data."""
+def bn_operands(form, n, c, h, w, dtype, seed, fmt="nchw"):
+    """``batch_norm_act``'s keyword arguments for ``form`` on random data,
+    x and the residual in the layout ``fmt`` ("nchw" or "channels_last")."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1170,6 +1177,10 @@ def bn_operands(form, n, c, h, w, dtype, seed):
         kw["residual"] = torch.randn((n, c, h, w), generator=g, device="cuda").to(dtype)
         if form == "bn_residual":
             kw["residual_norm"] = bn_norm(c, seed + 1)
+    if fmt == "channels_last":
+        for name in ("x", "residual"):
+            if name in kw:
+                kw[name] = kw[name].contiguous(memory_format=torch.channels_last)
     return kw
 
 
@@ -1184,10 +1195,11 @@ def bn_bytes(kw, out):
 
 
 def bn_compare(bn_mod, kw, label, want_path):
-    """The kernel against the plain version on ``kw``: the path taken, NaN
-    where the plain version has NaN, and the max abs error over the output's
-    largest magnitude within BN_TOL; returns (kernel's output, max abs
-    error)."""
+    """The kernel against the plain version on ``kw``: the path taken
+    (``vector/nchw``, ``scalar/channels_last``, ...), the output in x's
+    layout, NaN where the plain version has NaN, and the max abs error over
+    the output's largest magnitude within BN_TOL; returns (kernel's output,
+    max abs error)."""
     import torch
 
     wrapper = bn_mod.batch_norm_act
@@ -1198,6 +1210,8 @@ def bn_compare(bn_mod, kw, label, want_path):
     check(wrapper.paths[want_path] == before + 1,
           f"[bn_act] {label}: expected path {want_path}, counts {dict(wrapper.paths)}")
     check(got.shape == want.shape and got.dtype == want.dtype, f"[bn_act] {label}: shape or dtype")
+    check(bn_mod.layout(got) == bn_mod.layout(kw["x"]),
+          f"[bn_act] {label}: output {bn_mod.layout(got)}, x {bn_mod.layout(kw['x'])}")
     nan = torch.isnan(want)
     check(bool((torch.isnan(got) == nan).all()), f"[bn_act] {label}: NaN where the plain version has none")
     g, p = got.float()[~nan], want.float()[~nan]
@@ -1216,53 +1230,73 @@ def bn_compare(bn_mod, kw, label, want_path):
 
 def bn_edge_cases(bn_mod):
     """Small shapes that take the scalar path, vectors that cross planes,
-    channel slices, a misaligned residual, NaN and inf; returns the max abs
-    error over them."""
+    channel slices, a misaligned residual, NaN and inf, in NCHW and in
+    channels-last; returns the max abs error over them."""
     import torch
 
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         v = 16 // torch.empty((), dtype=dtype).element_size()
+        dt = str(dtype)[6:]
         cases = [
-            # (label, form, n, c, h, w, path)
-            ("odd pool 7 x 10", "bias_pool", 5, 3, 7, 10, "vector" if 10 % (2 * v) == 0 else "scalar"),
-            ("pool 6 x 16", "bias_pool", 5, 3, 6, 16, "vector"),
-            ("planes of 1 x 1", "relu", 7, 20, 1, 1, "vector" if 20 % v == 0 else "scalar"),
-            ("planes of 2 x 2", "residual", 7, 16, 2, 2, "vector"),
-            ("3 planes of 6 x 6", "bn_residual", 9, 3, 6, 6, "vector" if 108 % v == 0 else "scalar"),
-            ("conv bias, 3 planes of 6 x 6", "bias", 9, 3, 6, 6, "vector" if 108 % v == 0 else "scalar"),
-            ("conv bias, planes of 5 x 7", "bias", 4, 6, 5, 7, "scalar"),
-            ("conv bias, planes of 2 x 2", "bias", 5, 16, 2, 2, "vector"),
+            # (label, form, n, c, h, w, NCHW path, channels-last path)
+            ("odd pool 7 x 10", "bias_pool", 5, 3, 7, 10, "vector" if 10 % (2 * v) == 0 else "scalar",
+             "scalar"),
+            ("pool 6 x 16", "bias_pool", 5, 3, 6, 16, "vector", "scalar"),
+            ("pool 7 x 9, 16 channels", "bias_pool", 3, 16, 7, 9, "scalar", "vector"),
+            ("planes of 1 x 1", "relu", 7, 20, 1, 1, "vector" if 20 % v == 0 else "scalar", None),
+            ("planes of 2 x 2", "residual", 7, 16, 2, 2, "vector", "vector"),
+            ("3 planes of 6 x 6", "bn_residual", 9, 3, 6, 6, "vector" if 108 % v == 0 else "scalar",
+             "scalar"),
+            ("conv bias, 3 planes of 6 x 6", "bias", 9, 3, 6, 6, "vector" if 108 % v == 0 else "scalar",
+             "scalar"),
+            ("conv bias, planes of 5 x 7", "bias", 4, 6, 5, 7, "scalar", "scalar"),
+            ("conv bias, planes of 2 x 2", "bias", 5, 16, 2, 2, "vector", "vector"),
+            ("12 channels, planes of 5 x 7", "bn_residual", 4, 12, 5, 7,
+             "vector" if 420 % v == 0 else "scalar", "vector" if 12 % v == 0 else "scalar"),
         ]
-        for label, form, n, c, h, w, path in cases:
+        for label, form, n, c, h, w, path, cl_path in cases:
             kw = bn_operands(form, n, c, h, w, dtype, len(label))
-            err = max(err, bn_compare(bn_mod, kw, f"{label} {str(dtype)[6:]}", path)[1])
-        # a residual that is a slice of channels (the scale head's input), aligned
-        kw = bn_operands("residual", 6, 16, 6, 6, dtype, 3)
-        big = torch.randn((6, 40, 6, 6), device="cuda").to(dtype)
-        kw["residual"] = big[:, 8:24]
-        check(not kw["residual"].is_contiguous(), "a channel slice")
-        err = max(err, bn_compare(bn_mod, kw, f"channel-slice residual {str(dtype)[6:]}", "vector")[1])
-        # a residual one element past a 16-byte boundary
-        buf = torch.empty(kw["x"].numel() + 1, dtype=dtype, device="cuda")
-        shifted = buf[1:].view(kw["x"].shape)
-        shifted.copy_(kw["x"] * 0.5)
-        kw["residual"] = shifted
-        err = max(err, bn_compare(bn_mod, kw, f"misaligned residual {str(dtype)[6:]}", "scalar")[1])
-        # NaN and inf in, through BN + ReLU and through the pool
-        for form in ("relu", "bias_pool"):
-            kw = bn_operands(form, 4, 8, 6, 8 * v // 4, dtype, 11)
-            flat = kw["x"].view(-1)
-            flat[[0, 5, 17, 40]] = torch.tensor([float("nan"), float("inf"), -float("inf"), float("nan")],
-                                                dtype=dtype, device="cuda")
-            err = max(err, bn_compare(bn_mod, kw, f"NaN and inf, {form} {str(dtype)[6:]}", "vector")[1])
+            err = max(err, bn_compare(bn_mod, kw, f"{label} {dt}", f"{path}/nchw")[1])
+            if cl_path is not None:  # planes of one pixel are NCHW both ways
+                kw = bn_operands(form, n, c, h, w, dtype, len(label), fmt="channels_last")
+                err = max(err, bn_compare(bn_mod, kw, f"{label} {dt} channels-last",
+                                          f"{cl_path}/channels_last")[1])
+        for fmt in ("nchw", "channels_last"):
+            mf = torch.channels_last if fmt == "channels_last" else torch.contiguous_format
+            # a residual that is a slice of channels (the scale head's input), aligned
+            kw = bn_operands("residual", 6, 16, 6, 6, dtype, 3, fmt=fmt)
+            big = torch.randn((6, 40, 6, 6), device="cuda").to(dtype).contiguous(memory_format=mf)
+            kw["residual"] = big[:, 8:24]
+            check(not kw["residual"].is_contiguous(memory_format=mf), "a channel slice")
+            err = max(err, bn_compare(bn_mod, kw, f"channel-slice residual {dt} {fmt}", f"vector/{fmt}")[1])
+            if fmt == "channels_last":  # x a slice of channels, its pixels one element past a vector
+                kw = bn_operands("relu", 6, 16, 6, 6, dtype, 4, fmt=fmt)
+                kw["x"] = big[:, 9:25]
+                err = max(err, bn_compare(bn_mod, kw, f"channel-slice x {dt} {fmt}", f"scalar/{fmt}")[1])
+            # a residual one element past a 16-byte boundary
+            kw = bn_operands("residual", 6, 16, 6, 6, dtype, 3, fmt=fmt)
+            buf = torch.empty(kw["x"].numel() + 1, dtype=dtype, device="cuda")
+            shifted = buf[1:].view(kw["x"].shape) if fmt == "nchw" else (
+                buf[1:].view(6, 6, 6, 16).permute(0, 3, 1, 2))
+            shifted.copy_(kw["x"] * 0.5)
+            kw["residual"] = shifted
+            err = max(err, bn_compare(bn_mod, kw, f"misaligned residual {dt} {fmt}", f"scalar/{fmt}")[1])
+            # NaN and inf in, through BN + ReLU and through the pool
+            for form in ("relu", "bias_pool"):
+                kw = bn_operands(form, 4, 8, 6, 8 * v // 4, dtype, 11, fmt=fmt)
+                # x's elements in memory order (a view of x in either layout)
+                flat = (kw["x"].permute(0, 2, 3, 1) if fmt == "channels_last" else kw["x"]).view(-1)
+                flat[[0, 5, 17, 40]] = torch.tensor([float("nan"), float("inf"), -float("inf"), float("nan")],
+                                                    dtype=dtype, device="cuda")
+                err = max(err, bn_compare(bn_mod, kw, f"NaN and inf, {form} {dt} {fmt}", f"vector/{fmt}")[1])
     return err
 
 
 def phase_bn_act(card):
     """``[bn_act]``: the kernel against its plain version at every shape and
-    form of the bench's tracker call (:func:`bn_shapes`) in f32 and bf16,
-    then the edge cases;
+    form of the bench's tracker call (:func:`bn_shapes`) in f32 and bf16, in
+    NCHW and in channels-last, then the edge cases;
     times, byte bounds and shares, under ``inference_mode`` as the model
     runs it.  Returns the rows of the kernel table and the edge cases' max
     abs error."""
@@ -1274,10 +1308,11 @@ def phase_bn_act(card):
     launches0 = wrapper.launches
     rows = []
     with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            for label, n, c, side, forms in bn_shapes():
-                for form in forms:
-                    rows.append(bn_row(bn_mod, form, label, n, c, side, dtype, len(rows) + 1, card))
+        for fmt in ("nchw", "channels_last"):
+            for dtype in (torch.float32, torch.bfloat16):
+                for label, n, c, side, forms in bn_shapes():
+                    for form in forms:
+                        rows.append(bn_row(bn_mod, form, label, n, c, side, dtype, len(rows) + 1, card, fmt))
         edge_err = bn_edge_cases(bn_mod)
         log(f"[bn_act] edge cases max_abs_err {edge_err:.3e}; {wrapper.launches - launches0} launches "
             f"in the phase, by path {dict(wrapper.paths)}")
@@ -1293,14 +1328,17 @@ def phase_bn_act(card):
     return rows, edge_err
 
 
-def bn_row(bn_mod, form, label, n, c, side, dtype, seed, card):
-    """One shape of :func:`phase_bn_act`: checked, then timed."""
+def bn_row(bn_mod, form, label, n, c, side, dtype, seed, card, fmt="nchw"):
+    """One shape of :func:`phase_bn_act` in the layout ``fmt``: checked, then
+    timed.  Channels-last takes 16-byte vectors where they split the
+    channels."""
     import torch
 
     wrapper = bn_mod.batch_norm_act
-    kw = bn_operands(form, n, c, side, side, dtype, seed)
-    name = f"{label} {c} x {side} x {side} {form} {str(dtype)[6:]}"
-    out, err = bn_compare(bn_mod, kw, name, "vector")
+    kw = bn_operands(form, n, c, side, side, dtype, seed, fmt=fmt)
+    name = f"{label} {c} x {side} x {side} {form} {str(dtype)[6:]} {fmt}"
+    vector = fmt == "nchw" or c % (16 // kw["x"].element_size()) == 0
+    out, err = bn_compare(bn_mod, kw, name, f"{'vector' if vector else 'scalar'}/{fmt}")
     args = (kw["x"], kw["norm"], kw.get("conv_bias"), kw.get("residual"),
             kw.get("residual_norm"), kw.get("pool", False))
     ms = median_ms(lambda: wrapper(**kw), reps=20)
@@ -1315,8 +1353,9 @@ def bn_row(bn_mod, form, label, n, c, side, dtype, seed, card):
         f"{bound_ms / kernel_ms:.3f} of the kernel alone, {bound_ms / ms:.3f} of a call [{card}]")
     del kw, out, args
     torch.cuda.empty_cache()
-    return dict(shape=f"{name}, N={n}", max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", share=bound_ms / kernel_ms)
+    return dict(shape=f"{name}, N={n}", layout=fmt, max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                share=bound_ms / kernel_ms)
 
 
 # ---- the two single-image kernels ------------------------------------------
@@ -1736,6 +1775,53 @@ def kernel_shares(prof):
     return shares
 
 
+def phase_layout(model, rigs, seqs, hands, card):
+    """``[layout]``: one replay of a track_sequences_batched call at S x T
+    under torch.profiler, channels-last (the model's rule on this card) and
+    with NCHW forced (the rule answering no, a fresh capture): cuDNN's
+    NCHW<->NHWC transposes (``nchwToNhwc`` / ``nhwcToNchw``), the replay's
+    kernels and device ms, the device time by kind, the backbone's forwards
+    by layout; the two calls' angles against each other (both TF32, other
+    cuDNN kernels)."""
+    import torch
+    from umetrack_torch.models import backbone
+    from umetrack_torch.ops.bn_act import batch_norm_act
+    from umetrack_torch.tracker import HandTracker
+
+    tracker = HandTracker(model, device="cuda")
+    rule, angles, counts = backbone.channels_last_rule, {}, {}
+    for label, forced in (("channels-last", None), ("NCHW forced", lambda *args: False)):
+        free_card()
+        if forced is not None:
+            backbone.channels_last_rule = forced
+        try:
+            before = collections.Counter(batch_norm_act.formats)
+            tracker.track_sequences_batched(rigs, seqs, hands)  # the capture
+            res, _ = tracker.track_sequences_batched(rigs, seqs, hands)
+            prof = profile_call(lambda: tracker.track_sequences_batched(rigs, seqs, hands))
+            forwards = dict(collections.Counter(batch_norm_act.formats) - before)
+        finally:
+            backbone.channels_last_rule = rule
+        angles[label] = res.joint_angles
+        counts[label] = sum(n for _, n, key in prof["rows"] if "nchwtonhwc" in key.lower()
+                            or "nhwctonchw" in key.lower())
+        kinds = kernel_shares(prof)
+        log(f"[layout] one track_sequences_batched replay S={S_BENCH} T={T_BENCH} f32 (TF32 "
+            f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}), {label}: {counts[label]} "
+            f"nchwToNhwc / nhwcToNchw kernels, {prof['launches']} kernels, device "
+            f"{prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms; device ms by kind "
+            + ", ".join(f"{k} {v * prof['device_ms']:.2f}" for k, v in kinds.items() if v)
+            + f"; backbone forwards by layout over the three calls {forwards} [{card}]")
+    gap = float((angles["channels-last"] - angles["NCHW forced"]).abs().nan_to_num().max())
+    log(f"[layout] transposes in a replay: {counts['NCHW forced']} with NCHW forced -> "
+        f"{counts['channels-last']} channels-last; angles channels-last against NCHW: max abs "
+        f"{gap:.3e} rad")
+    check(counts["channels-last"] == 0 or not torch.backends.cudnn.allow_tf32,
+          f"[layout] channels-last left {counts['channels-last']} transposes of {counts['NCHW forced']}")
+    free_card()
+    return counts
+
+
 # ---- the torch_data slice ---------------------------------------------------
 
 
@@ -2065,15 +2151,25 @@ class LaunchTally:
     ``bn_total`` are the sums of those readings.  Each pool launch feeds one
     forward of the model, ``scale`` of a call's the scale head's and the
     rest the known skeleton's, so a call makes :func:`bn_sites` BatchNorm
-    launches.  Comparisons, timings and profiles run outside it."""
+    launches, and one backbone forward a pool launch: ``bn_paths`` and
+    ``formats`` sum the BatchNorm's launches by path and layout and the
+    forwards by layout (``batch_norm_act.paths`` / ``.formats``).
+    Comparisons, timings and profiles run outside it."""
 
     def __init__(self, pool, bn):
         self.pool, self.bn, self.total, self.bn_total = pool, bn, 0, 0
+        self.bn_paths, self.formats = collections.Counter(), collections.Counter()
 
     def __call__(self, fn, want, label, scale=0):
         self.pool.launches = self.bn.launches = 0
+        paths, formats = collections.Counter(self.bn.paths), collections.Counter(self.bn.formats)
         out = fn()
         made, bn_made, bn_want = self.pool.launches, self.bn.launches, bn_sites(want - scale, scale)
+        forwards = collections.Counter(self.bn.formats) - formats
+        check(sum(forwards.values()) == want,
+              f"{label}: backbone forwards by layout {dict(forwards)}, expected {want} in all")
+        self.formats.update(forwards)
+        self.bn_paths.update(collections.Counter(self.bn.paths) - paths)
         check(made == want, f"{label}: {made} warp_pool launches, expected {want}")
         check(bn_made == bn_want, f"{label}: {bn_made} batch_norm_act launches, expected {bn_want} "
                                   f"({want - scale} known-skeleton and {scale} scale-head forwards)")
@@ -4784,13 +4880,16 @@ def kernel_entry(name, source, replaces, by_path, numbers, shapes=()):
     }
 
 
-def bn_entry(rows, edge_err, by_path):
+def bn_entry(rows, edge_err, by_path, by_layout):
     """The one-pass BatchNorm's line of the kernel table: its times at the
-    stem's f32 shape, every shape in ``shapes``."""
+    stem's f32 shape, every shape in ``shapes``; ``by_layout``: each tallied
+    path's launches by the kernel's path and layout, and its backbone
+    forwards by layout."""
     stem = rows[0]
     return {
         "name": "batch_norm_act", "route": "cuda", "source": "umetrack_torch/csrc/bn_act.cu",
         "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches_and_forwards_by_layout": by_layout,
         "max_abs_err": max([edge_err] + [row["max_abs_err"] for row in rows]), "shapes": rows,
         "ms": stem["ms"], "kernel_ms": stem["kernel_ms"], "plain_ms": stem["plain_ms"],
         "bound_ms": stem["bound_ms"], "bound_by": stem["bound_by"], "library_ms": stem["library_ms"],
@@ -4839,6 +4938,7 @@ def main():
 
     model_cuda = gate_weights(make_model(ModelConfig(), device="cuda"))
     pool_launches, bn_slice = phase_slice(wp_mod, model_cuda, rigs, seqs, hands, card)
+    phase_layout(model_cuda, rigs, seqs, hands, card)
     tracker = HandTracker(model_cuda, device="cuda")
     phase_profile(lambda: tracker.track_sequences_batched(rigs, seqs, hands),
                   "one track_sequences_batched call", "warp_pool_kernel", card)
@@ -4924,8 +5024,12 @@ def main():
     prep_launches, corpus, f32_step_ms = phase_resident(wp_mod, wi_mod, card)
     phase_bf16_resident(corpus, f32_step_ms, card)
     t_tg = time.perf_counter()
+    formats = collections.Counter(batch_norm_act.formats)
     phase_train_graph(corpus, card)
-    log(f"[train-graph] the phase took {time.perf_counter() - t_tg:.1f} s")
+    formats = dict(collections.Counter(batch_norm_act.formats) - formats)
+    check("channels_last" not in formats, f"[train-graph] channels-last forwards in training: {formats}")
+    log(f"[train-graph] the phase took {time.perf_counter() - t_tg:.1f} s; backbone forwards by "
+        f"layout {formats} (train mode: NCHW)")
     del corpus
     free_card()
     syn_launches, tree_launches, syn_bf16 = phase_train_app(wp_mod, wi_mod, card)
@@ -4967,7 +5071,11 @@ def main():
                  {"tracker": bn_slice, "compiled steps": graph_tally.bn_total, "raw_data eval": tally.bn_total,
                   "batched eval": batch_tally.bn_total, "orbax checkpoint tracker": orbax_tally.bn_total,
                   "bf16 tracker and batched eval": bf16_tally.bn_total,
-                  "bf16 raw_data eval": eval16_tally.bn_total}),
+                  "bf16 raw_data eval": eval16_tally.bn_total},
+                 {label: (dict(t.bn_paths), dict(t.formats)) for label, t in (
+                     ("compiled steps", graph_tally), ("raw_data eval", tally),
+                     ("batched eval", batch_tally), ("orbax checkpoint tracker", orbax_tally),
+                     ("bf16 tracker and batched eval", bf16_tally), ("bf16 raw_data eval", eval16_tally))}),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

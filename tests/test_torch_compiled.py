@@ -326,7 +326,7 @@ def test_replay_advances_the_launch_counters(fake_graphs):
     _toy_call(step, model, x)
     # the eager first run launched once; the capture launched nothing
     assert wp.launches == 1 and wp.paths == {"vector": 1}
-    assert compiled.cached()[0].launched[0] == (1, {"vector": 1})
+    assert compiled.cached()[0].launched[0] == (1, {"paths": {"vector": 1}})
     for n in range(2, 5):
         _toy_call(step, model, x)
         assert wp.launches == n and wp.paths == {"vector": n}

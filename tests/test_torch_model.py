@@ -22,7 +22,9 @@ from umetrack_torch.models import (
     UmeTrackNet,
     from_flax_variables,
 )
+from umetrack_torch.models import backbone, components
 from umetrack_torch.models.procrustes import procrustes_align_quat, procrustes_align_svd
+from umetrack_torch.ops import bn_act
 from torch_threads import few_threads  # noqa: F401  (autouse: two CPU threads)
 
 SMALL = dict(
@@ -180,6 +182,52 @@ def test_known_skeleton_matches_jax(models, inputs):
     _close(out.wrist_xfs, jout.wrist_xfs)
     _close(new.mem_features, _nchw(jnew.mem_features))
     _close(new.prev_extrinsics, jnew.prev_extrinsics)
+
+
+@pytest.mark.parametrize("head", ["known", "unknown"])
+def test_channels_last_forward_matches_nchw(models, inputs, head, monkeypatch):
+    """The forward a card runs channels-last, forced on the CPU (the rule
+    takes the CPU for a card): the backbone, the FTL, the fusion, the
+    temporal cell and the heads on channels-last tensors; every one-pass
+    site is handed x and its residual in one layout, as the kernel demands
+    (the stem's, after its one-channel convolution, and the skeleton
+    encoder's, which follows no convolution, stay NCHW); the
+    memory carry leaves in the layout it came in; the outputs equal the NCHW
+    forward's within the f32 tolerance."""
+    _, _, model = models
+    _, frame = _frames(inputs)
+    state = TemporalState(torch.from_numpy(_nchw(inputs["mem"])).contiguous(),
+                          torch.from_numpy(inputs["prev"]))
+    skel = SkeletonInputs(torch.from_numpy(inputs["axes"]), torch.from_numpy(inputs["rest"]))
+
+    def forward():
+        with torch.no_grad():
+            if head == "known":
+                return model.known_skeleton(frame, skel, state)
+            return model.predict_scale(frame, state)
+
+    want, want_state = forward()
+    rule = backbone.channels_last_rule
+    monkeypatch.setattr(backbone, "channels_last_rule", lambda device, *rest: rule("cuda", *rest))
+    layouts = []
+
+    def planned(x, norm, conv_bias=None, residual=None, residual_norm=None, pool=False):
+        layouts.append(bn_act._plan(x, residual, pool)[0])  # raises on a mix
+        return bn_act.batch_norm_act(x, norm, conv_bias, residual, residual_norm, pool)
+
+    monkeypatch.setattr(backbone, "batch_norm_act", planned)
+    monkeypatch.setattr(components, "batch_norm_act", planned)
+    before = bn_act.batch_norm_act.formats[bn_act.CHANNELS_LAST]
+    got, got_state = forward()
+    assert bn_act.batch_norm_act.formats[bn_act.CHANNELS_LAST] == before + 1
+    nchw = 1 + int(head == "known")  # the stem's pass; the known head's skeleton encoder
+    assert layouts.count(bn_act.NCHW) == nchw
+    assert layouts.count(bn_act.CHANNELS_LAST) == len(layouts) - nchw > 0
+    assert got_state.mem_features.is_contiguous()
+    for name in ("joint_angles", "wrist_xfs", "landmark_uncertainty_sigmas", "skel_scales"):
+        if getattr(want, name) is not None:
+            _close(getattr(got, name), getattr(want, name).numpy())
+    _close(got_state.mem_features, want_state.mem_features.numpy())
 
 
 def test_procrustes_quat_matches_svd_oracle_and_jax():

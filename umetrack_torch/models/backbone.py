@@ -1,4 +1,4 @@
-"""ResNet image backbone (NCHW), sized for 96x96 mono crops.
+"""ResNet image backbone, sized for 96x96 mono crops.
 
 Counterpart of ``umetrack_tpu/models/backbone.py``: stem conv + BN + ReLU +
 maxpool/2, four BasicBlock stages, then a 1x1 projection to the
@@ -22,6 +22,19 @@ add, ReLU, the stem's max-pool, and on a CUDA device the preceding conv's
 bias: :meth:`Conv.without_bias`) is one pass of ``ops/bn_act.py``, with the
 same rounding; train mode and a forward that needs gradients run the ops
 one by one.
+
+Tensors are NCHW, and on a card the activations of an eval-mode forward
+are channels-last (NHWC) where the convolutions run on tensor cores:
+cuDNN's TF32 and bf16 kernels are NHWC, and an NCHW tensor would be
+transposed in and out of each of them.  :func:`channels_last_rule` decides
+it from what the forward can observe (CUDA, the one pass, bf16 or TF32, no
+model group), each :class:`Conv` hands cuDNN its input and weight in that
+layout (:meth:`Conv.input`), and what follows a convolution keeps its
+layout (the one-pass kernel takes either); the stem's one-channel
+convolution and its pass stay NCHW, and the first block takes their
+output channels-last.  The CPU, train mode, float32 with TF32 off and the
+tensor-parallel path stay NCHW.
+``batch_norm_act.formats`` counts the backbone's forwards by layout.
 """
 from __future__ import annotations
 
@@ -30,34 +43,91 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.bn_act import batch_norm_act
+from ..ops.bn_act import CHANNELS_LAST, NCHW, batch_norm_act
 from .config import ModelConfig
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: running <- 0.9 * running + 0.1 * batch
+FORMATS = batch_norm_act.formats  # the backbone's forwards by layout
+
+
+def channels_last_rule(device_type: str, one_pass: bool, compute_dtype: torch.dtype,
+                       allow_tf32: bool, model_group) -> bool:
+    """Whether a convolution and the activations around it are channels-last:
+    on a CUDA device, in a forward that runs the one pass (:func:`one_pass`:
+    eval mode, nothing for autograd to record), where cuDNN runs it on
+    tensor cores (bf16, or float32 with ``torch.backends.cudnn.allow_tf32``,
+    part of a captured step's key), and not in a model sharded over a model
+    group."""
+    return (device_type == "cuda" and one_pass and model_group is None
+            and (compute_dtype == torch.bfloat16
+                 or (compute_dtype == torch.float32 and allow_tf32)))
+
+
+def as_channels_last(t: torch.Tensor) -> torch.Tensor:
+    """The 4-D ``t`` with channels-last strides: a copy where its elements lie
+    in another order, else a view that gives the strides of size-one
+    dimensions their channels-last values (a one-channel image or a 1x1
+    kernel is contiguous both ways, and PyTorch reads its layout from its
+    strides)."""
+    if t.is_contiguous(memory_format=torch.channels_last):
+        _, c, h, w = t.shape
+        return t.as_strided(t.shape, (h * w * c, 1, w * c, c))
+    return t.contiguous(memory_format=torch.channels_last)
 
 
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype``, as flax's ``nn.Conv(
     dtype=...)`` does: the input, the f32 weight and the f32 bias are cast
     to it (the weight stays an f32 ``Parameter``; its gradient reaches it
-    through the cast) and the output is in it.
+    through the cast) and the output is in it.  Where
+    :func:`channels_last_rule` holds, the input and the cast weight are
+    channels-last (:meth:`input`), and so is the output; the weight takes
+    its layout inside the forward, so a captured step reads the parameter
+    itself and sees it updated in place.  An input whose pixels hold fewer
+    than 16 bytes (the stem's one channel) stays NCHW: no tensor-core
+    kernel takes it, and for it cuDNN's NCHW kernel is the fastest (given
+    channels-last it transposes around it).
 
     ``model_group`` is set by ``parallel/mesh.py::shard_variables`` when the
     weight is this rank's slice of the output channels: the layer then
     computes its slice and gathers the rest over the group, in the compute
-    dtype (``parallel/collectives.py``)."""
+    dtype (``parallel/collectives.py``).  ``mesh_group`` is the model group
+    of the sharded model the layer belongs to, sharded or not (set on each
+    of its ``Conv`` layers by the same call): the whole model stays NCHW."""
 
     model_group = None
+    mesh_group = None
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
+    def channels_last(self, x: torch.Tensor) -> bool:
+        """:func:`channels_last_rule` for this layer on the input ``x``."""
+        group = self.model_group if self.model_group is not None else self.mesh_group
+        return channels_last_rule(x.device.type, not self.training and one_pass(x, self),
+                                  self.compute_dtype, torch.backends.cudnn.allow_tf32, group)
+
+    def takes_channels_last(self, x: torch.Tensor) -> bool:
+        """Whether this layer computes channels-last on ``x``: where
+        :meth:`channels_last` holds and a pixel of ``x`` fills 16 bytes in
+        the compute dtype."""
+        return x.shape[1] * self.compute_dtype.itemsize >= 16 and self.channels_last(x)
+
+    def input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in the layout this layer takes it in: channels-last where
+        :meth:`takes_channels_last` (a copy unless it is already), else as
+        it is."""
+        return as_channels_last(x) if self.takes_channels_last(x) else x
+
     def forward(self, x: torch.Tensor, with_bias: bool = True) -> torch.Tensor:
         d = self.compute_dtype
         bias = None if self.bias is None or not with_bias else self.bias.to(d)
         if self.model_group is None:
+            if self.takes_channels_last(x):
+                return self._conv_forward(as_channels_last(x.to(d)),
+                                          as_channels_last(self.weight.to(d)), bias)
             return self._conv_forward(x.to(d), self.weight.to(d), bias)
         from ..parallel.collectives import copy_to_model, gather_from_model
 
@@ -172,7 +242,7 @@ def one_pass(x: torch.Tensor, *modules: nn.Module) -> bool:
     ``modules``: none of them in train mode, nothing for autograd to record
     (grad mode off, or neither ``x`` nor a parameter of ``modules``
     requires grad).  The layout is the kernel's to check: on a CUDA device
-    it takes NCHW samples and refuses any other."""
+    it takes NCHW or channels-last samples, a residual in x's."""
     if any(m.training for mod in modules for m in mod.modules() if isinstance(m, nn.BatchNorm2d)):
         return False
     return not torch.is_grad_enabled() or not (
@@ -196,6 +266,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if one_pass(x, self):
+            x = self.conv1.input(x)  # the residual in the convolutions' layout
             y = self.conv2(batch_norm_act(self.conv1(x), self.bn1))
             if self.use_downsample:
                 return batch_norm_act(y, self.bn2, residual=self.downsample_conv(x),
@@ -235,6 +306,7 @@ class ResNetBackbone(nn.Module):
                               compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        FORMATS[CHANNELS_LAST if self.stem_conv.channels_last(x) else NCHW] += 1
         if one_pass(x, self.stem_conv, self.stem_bn):
             y, bias = self.stem_conv.without_bias(x)
             x = batch_norm_act(y, self.stem_bn, conv_bias=bias, pool=True)

@@ -1,5 +1,6 @@
-"""Model sub-components (NCHW): multi-view fusion, the temporal conv-RNN
-cell, the skeleton encoder and the pose-regression head.
+"""Model sub-components (NCHW, or channels-last as ``models/backbone.py``
+says): multi-view fusion, the temporal conv-RNN cell, the skeleton encoder
+and the pose-regression head.
 
 Counterpart of ``umetrack_tpu/models/components.py``; submodule names
 follow the flax tree (``fusion.conv0``, ``regressor_k.block1.bn2``, ...).

@@ -1,9 +1,9 @@
-"""Feature Transform Layer (FTL) for NCHW feature maps.
+"""Feature Transform Layer (FTL) for [..., C, H, W] feature maps.
 
 Counterpart of ``umetrack_tpu/models/ftl.py``.  The leading
 ``round(C * ratio)`` channels are read as the X / Y / Z thirds of
-(C/3 * H * W) points and rigidly transformed; in NCHW the thirds are
-channel slices along dim -3.
+(C/3 * H * W) points and rigidly transformed; the thirds are channel
+slices along dim -3, views in NCHW and in channels-last alike.
 """
 from __future__ import annotations
 

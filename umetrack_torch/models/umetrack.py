@@ -1,4 +1,4 @@
-"""UmeTrack model assembly (NCHW): dense-batch, mask-based, state-as-carry.
+"""UmeTrack model assembly: dense-batch, mask-based, state-as-carry.
 
 Counterpart of ``umetrack_tpu/models/umetrack.py``.  Samples are a dense
 ``[B, V=2]`` layout with an ``n_views`` count per sample; the single-view
@@ -6,7 +6,9 @@ and the two-view fused paths are both computed and selected by mask.  The
 conv-RNN memory is an explicit :class:`TemporalState`.
 
 Units: images in [0, 1]; extrinsics world->eye in meters; outputs in
-meters.  Feature maps and the memory are ``[B, C, h, w]``.
+meters.  Feature maps and the memory are ``[B, C, h, w]``, NCHW or, in an
+eval-mode forward on a card, channels-last (``models/backbone.py``); the
+memory carry leaves a step in the layout it came in.
 
 Dtypes follow the JAX model's: the layers compute in
 ``ModelConfig.compute_dtype`` (``models/backbone.py``), an FTL applies an
@@ -24,6 +26,7 @@ from torch import nn
 
 from .._tree import TensorTree
 from ..geometry import affine
+from ..ops.bn_act import CHANNELS_LAST, layout
 from .backbone import ResNetBackbone
 from .components import (
     MultiViewFusion,
@@ -197,7 +200,8 @@ class UmeTrackNet(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One conv-RNN cell step on precomputed inputs -> (fused, new_mem).
         The memory is warped by the f32 transform and cast back to its own
-        dtype, as the JAX cell does."""
+        dtype, as the JAX cell does; the new memory has the old one's
+        layout (a captured step's key holds its inputs' strides)."""
         cfg = self.config
         compensated = apply_ftl(
             mem_transform, mem_features, cfg.temporal_ftl_ratio
@@ -206,7 +210,10 @@ class UmeTrackNet(nn.Module):
             use_memory[:, None, None, None], compensated, torch.zeros_like(mem_features)
         )
         tout = self.temporal(torch.cat([mem_in, img_features], dim=1))
-        return tout[:, cfg.n_memory_channels:], tout[:, :cfg.n_memory_channels]
+        new_mem = tout[:, :cfg.n_memory_channels]
+        if layout(new_mem) == CHANNELS_LAST and layout(mem_features) != CHANNELS_LAST:
+            new_mem = new_mem.contiguous()
+        return tout[:, cfg.n_memory_channels:], new_mem
 
     def _temporal_features(
         self, img_features: torch.Tensor, frame: FrameInputs, state: TemporalState

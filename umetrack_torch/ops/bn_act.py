@@ -11,13 +11,21 @@ computing BN's scale and shift from the running statistics in f32 itself
 (no folded weights, no extra launch), and the pool form stores only the
 pooled quarter.
 
+The kernel takes either of the model's layouts (:func:`layout`): NCHW
+samples, or channels-last (NHWC) samples, which ``models/backbone.py``
+runs on the card where its convolutions run on tensor cores; its output
+has the input's layout.
+
 :func:`batch_norm_act` launches the kernel for CUDA tensors and runs the
 plain version (:func:`batch_norm_act_plain`, the op sequence the model ran
 before the kernel) for CPU tensors; ``batch_norm_act.launches`` counts
 kernel launches and ``batch_norm_act.paths`` counts them by the kernel's
-form (``vector``: 16 bytes a thread, ``scalar``: one element), both where
-the kernel is launched; a CUDA graph that captured launches adds them on
-each replay (``tracker/compiled.py``).
+form and layout (``vector/nchw``, ``scalar/channels_last``, ...: ``vector``
+16 bytes a thread, ``scalar`` one element), both where the kernel is
+launched; ``batch_norm_act.formats`` counts the model's forwards by the
+layout of their activations (``channels_last`` / ``nchw``, counted by
+``models/backbone.py``).  A CUDA graph that captured launches or forwards
+adds them on each replay (``tracker/compiled.py``).
 """
 from __future__ import annotations
 
@@ -38,11 +46,14 @@ _SIGNATURES = {
     "bn_act_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, ctypes.c_float,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
     ),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
-_LIMIT = 2**31 - 1  # threads of one launch
+_LIMIT = 2**31 - 1  # threads of one launch, elements of one sample
+_MAX_NHWC_CHANNELS = 2048  # csrc/bn_act.cu's kMaxChannels: the constants fill shared memory
+NCHW, CHANNELS_LAST = "nchw", "channels_last"
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,6 +109,31 @@ def _samples_contiguous(t: torch.Tensor) -> bool:
     return t.shape[0] == 0 or t[0].is_contiguous()
 
 
+def _pixel_stride(t: torch.Tensor) -> Optional[int]:
+    """The elements from one pixel of ``t`` to the next where its samples are
+    channels-last: each pixel's C channels adjacent, the pixels evenly spaced
+    in row-major order (the whole channels-last tensor, or a slice of its
+    channels, is); else None."""
+    _, c, h, w = t.shape
+    if c > 1 and t.stride(1) != 1:
+        return None
+    p = t.stride(3) if w > 1 else t.stride(2) if h > 1 else c
+    if h > 1 and w > 1 and t.stride(2) != w * p:
+        return None
+    return p if p >= c else None
+
+
+def layout(t: torch.Tensor) -> Optional[str]:
+    """The layout of the 4-D tensor ``t``'s samples as the kernel reads them:
+    ``"nchw"`` where each sample is a contiguous [C, H, W] block,
+    ``"channels_last"`` where its pixels are (:func:`_pixel_stride`), else
+    None.  A tensor that is both (one channel, or planes of one pixel) is
+    ``"nchw"``."""
+    if _samples_contiguous(t):
+        return NCHW
+    return CHANNELS_LAST if _pixel_stride(t) is not None else None
+
+
 def _check(x, norm, conv_bias, residual, residual_norm, pool) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be NCHW, got {tuple(x.shape)}")
@@ -122,30 +158,61 @@ def _check(x, norm, conv_bias, residual, residual_norm, pool) -> None:
         raise ValueError(f"the pool form needs planes of at least 2 x 2, got {tuple(x.shape[2:])}")
 
 
+def _plan(x, residual, pool):
+    """(layout, strides, vector, out) of a launch on checked tensors: the
+    layout of ``x``'s samples, which the residual must share (a mix is
+    refused); the elements from one sample of x, one pixel of x, one sample
+    of the residual and one pixel of the residual to the next; whether
+    16-byte vectors fit the shape, the strides and every pointer; and the
+    output, empty and dense in x's layout."""
+    fmt = layout(x)
+    if fmt is None:
+        raise ValueError(f"x must have NCHW or channels-last samples, got strides {x.stride()}")
+    if residual is not None and layout(residual) != fmt and not (
+            fmt == CHANNELS_LAST and _pixel_stride(residual) is not None):
+        raise ValueError(f"residual must share x's layout ({fmt}): a mix of layouts is refused, "
+                         f"got strides {residual.stride()} beside {x.stride()}")
+    n, c, h, w = x.shape
+    out_shape = (n, c, h // 2, w // 2) if pool else (n, c, h, w)
+    nhwc = fmt == CHANNELS_LAST
+    if nhwc and c > _MAX_NHWC_CHANNELS:
+        raise ValueError(f"the channels-last kernel takes at most {_MAX_NHWC_CHANNELS} channels, got {c}")
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last if nhwc else torch.contiguous_format)
+    per_sample = out.numel() // max(n, 1)
+    if per_sample > _LIMIT:
+        raise ValueError(f"{tuple(x.shape)}: a sample of more elements than the kernel indexes")
+    if nhwc:
+        strides = (x.stride(0), _pixel_stride(x), *((c * h * w, c) if residual is None else
+                                                     (residual.stride(0), _pixel_stride(residual))))
+    else:
+        strides = (x.stride(0), c, c * h * w if residual is None else residual.stride(0), c)
+    v = 16 // x.element_size()
+    if nhwc:  # a vector runs along the channels of a pixel
+        fits = c % v == 0 and all(s % v == 0 for s in strides)
+    else:  # along a sample (the pool form: along a row)
+        fits = (w % (2 * v) == 0 if pool else per_sample % v == 0) and all(
+            s % v == 0 for s in strides[0::2])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, out, residual) if t is not None)
+    return fmt, strides, fits and aligned, out
+
+
 def _launch(x, norm, conv_bias, residual, residual_norm, pool) -> torch.Tensor:
     """One launch of the kernel on checked CUDA tensors, counted in
     ``batch_norm_act.launches`` and ``.paths``.  16-byte vectors where the
-    shape and every pointer allow them, else one element a thread.  The
-    kernel takes samples laid out as contiguous [C, H, W] blocks and no
-    other layout (a channels-last tensor is refused, not run op by op)."""
-    for name, t in (("x", x), ("residual", residual)):
-        if t is not None and not _samples_contiguous(t):
-            raise ValueError(f"{name} must be an NCHW tensor whose samples are contiguous")
+    shape and every pointer allow them, else one element a thread.  NCHW
+    samples take the NCHW kernel, channels-last samples the NHWC kernel
+    (:func:`_plan`); another layout, or a residual in the other layout, is
+    refused, not run op by op."""
+    fmt, strides, vector, out = _plan(x, residual, pool)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    n, c, h, w = x.shape
-    out_shape = (n, c, h // 2, w // 2) if pool else (n, c, h, w)
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    v = 16 // x.element_size()
-    per_sample = out.numel() // n
-    strides = (x.stride(0), c * h * w if residual is None else residual.stride(0))
-    fits = (w % (2 * v) == 0 if pool else per_sample % v == 0) and all(s % v == 0 for s in strides)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, out, residual) if t is not None)
-    vector = fits and aligned
-    if n * (per_sample // (v if vector else 1)) > _LIMIT:
+    n, c, h, w = x.shape
+    if n * (out.numel() // n // (16 // x.element_size() if vector else 1)) > _LIMIT:
         raise ValueError(f"{tuple(x.shape)} needs more threads than one launch of the kernel has")
+    x_stride, x_pixel, r_stride, r_pixel = strides
     r = residual_norm
     lib = _library()
     with torch.cuda.device(x.device):
@@ -158,26 +225,28 @@ def _launch(x, norm, conv_bias, residual, residual_norm, pool) -> torch.Tensor:
             *((None,) * 4 if r is None else (r.running_mean.data_ptr(), r.running_var.data_ptr(),
                                              r.weight.data_ptr(), r.bias.data_ptr())),
             0.0 if r is None else r.eps,
-            n, c, h, w, *strides, int(x.dtype == torch.bfloat16), int(pool), int(vector), stream,
+            n, c, h, w, x_stride, r_stride, x_pixel, r_pixel, int(fmt == CHANNELS_LAST),
+            int(x.dtype == torch.bfloat16), int(pool), int(vector), stream,
         )
     if err != 0:
         raise RuntimeError(f"batch_norm_act kernel launch failed: CUDA error {err}")
     batch_norm_act.launches += 1
-    batch_norm_act.paths["vector" if vector else "scalar"] += 1
+    batch_norm_act.paths[f"{'vector' if vector else 'scalar'}/{fmt}"] += 1
     return out
 
 
 def batch_norm_act(
-    x: torch.Tensor,  # [N, C, H, W] float32 or bfloat16, each sample contiguous on CUDA
+    x: torch.Tensor,  # [N, C, H, W] float32 or bfloat16, NCHW or channels-last samples on CUDA
     norm: nn.BatchNorm2d,  # eval mode: its running statistics, weight and bias (f32 [C])
     conv_bias: Optional[torch.Tensor] = None,  # f32 [C], the preceding conv's bias
-    residual: Optional[torch.Tensor] = None,  # x's shape and dtype, each sample contiguous on CUDA
+    residual: Optional[torch.Tensor] = None,  # x's shape, dtype and (on CUDA) layout
     residual_norm: Optional[nn.BatchNorm2d] = None,  # BN applied to the residual first
     pool: bool = False,  # then max-pool 2x2/2 (no residual)
-) -> torch.Tensor:  # x's dtype; [N, C, H // 2, W // 2] with pool
+) -> torch.Tensor:  # x's dtype and layout; [N, C, H // 2, W // 2] with pool
     """``ReLU(BN(x [+ conv_bias]) [+ residual | + BN_r(residual)])``, then
     ``max_pool2d(2, 2)`` if ``pool``, in one pass.  CUDA tensors launch the
-    kernel, which refuses any layout but NCHW samples; CPU tensors take
+    kernel, which takes NCHW or channels-last samples (:func:`layout`) and
+    refuses another layout or a residual in the other one; CPU tensors take
     :func:`batch_norm_act_plain` in whatever layout.  The BatchNorms
     are read in eval mode whatever their ``training`` flag: the caller
     decides that this form applies."""
@@ -189,3 +258,4 @@ def batch_norm_act(
 
 batch_norm_act.launches = 0
 batch_norm_act.paths = collections.Counter()
+batch_norm_act.formats = collections.Counter()

@@ -161,15 +161,19 @@ def shard_variables(model: torch.nn.Module, mesh: Mesh, min_shard_size: int = 10
     1``, each weight that :func:`param_sharding` splits is replaced by this
     rank's contiguous slice of its dim 0 (a new ``Parameter``: build the
     optimizer after this call) and its ``Conv`` / ``Dense`` computes through
-    the model group.  Every ``BatchNorm`` normalises over the data group,
-    and the model keeps the mesh (``model.mesh``) for the reductions of the
-    train step and the evaluation.  Returns ``model``."""
+    the model group, and every ``Conv`` keeps the group as ``mesh_group``
+    (the model then stays NCHW on a card).  Every ``BatchNorm`` normalises
+    over the data group, and the model keeps the mesh (``model.mesh``) for
+    the reductions of the train step and the evaluation.  Returns
+    ``model``."""
     if mesh.data * mesh.model > 1 or is_initialized():
         for tensor in list(model.parameters()) + list(model.buffers()):
             dist.broadcast(tensor.data, src=0)
     if mesh.model > 1:
         rule = param_sharding(mesh, min_shard_size)
         for name, module in _tp_modules(model):
+            if isinstance(module, Conv):
+                module.mesh_group = mesh.model_group  # a sharded model's layers all stay NCHW
             if rule(f"{name}.weight", module.weight):
                 width = module.weight.shape[0] // mesh.model
                 part = module.weight.narrow(0, mesh.model_index * width, width).clone()

@@ -45,7 +45,9 @@ The port's kernels count their launches in Python (``ops/warp_pool.py``,
 ``ops/warp_image.py``, ``ops/bn_act.py``), where they are launched, and a
 replay runs no Python.  So the launches a capture records are taken back
 off the counters (nothing ran), and each replay adds them again: the
-counters go on counting the kernels that ran on the card.
+counters go on counting the kernels that ran on the card.  The same holds
+for the Counters beside them (:data:`COUNTERS`: launches by path, the
+model's forwards by layout).
 
 Under a profile, a call's host time is split into the spans ``step.key``
 (the key), ``step.stage`` (the copies into the static inputs),
@@ -154,28 +156,33 @@ def _signature(tree):
 # ---- the launch counters ------------------------------------------------------
 
 
+COUNTERS = ("paths", "formats")  # the Counters a wrapper may keep beside ``.launches``
+
+
 def _read_counts() -> list:
-    return [(w.launches, collections.Counter(getattr(w, "paths", ()))) for w in COUNTED]
+    return [(w.launches, {name: collections.Counter(getattr(w, name))
+                          for name in COUNTERS if hasattr(w, name)}) for w in COUNTED]
 
 
 def _restore_counts(saved: list) -> None:
-    for w, (n, paths) in zip(COUNTED, saved):
+    for w, (n, counters) in zip(COUNTED, saved):
         w.launches = n
-        if hasattr(w, "paths"):
-            w.paths.clear()
-            w.paths.update(paths)
+        for name, counts in counters.items():
+            getattr(w, name).clear()
+            getattr(w, name).update(counts)
 
 
 def _counts_since(saved: list) -> list:
-    return [(w.launches - n, collections.Counter(getattr(w, "paths", ())) - paths)
-            for w, (n, paths) in zip(COUNTED, saved)]
+    return [(w.launches - n, {name: collections.Counter(getattr(w, name)) - counts
+                              for name, counts in counters.items()})
+            for w, (n, counters) in zip(COUNTED, saved)]
 
 
 def _advance_counts(launched: list) -> None:
-    for w, (n, paths) in zip(COUNTED, launched):
+    for w, (n, counters) in zip(COUNTED, launched):
         w.launches += n
-        if paths:
-            w.paths.update(paths)
+        for name, counts in counters.items():
+            getattr(w, name).update(counts)
 
 
 # ---- CUDA, behind one object that the CPU tests replace -------------------------
