@@ -21,6 +21,7 @@ exits non-zero without a result line:
    that cannot be staged, misaligned coordinate views), the path taken
    checked each time; the time of a call of the wrapper (median of single
    calls) and of the kernel alone (launches back to back), the byte bound
+   (``portbench/yardstick.py``'s, the benchmark's ``warp_pool_roofline``)
    and the streaming floor (``stream_ms``);
    ``[bn_act]``: the one-pass eval-mode BatchNorm kernel (``csrc/bn_act.cu``)
    against its plain version in f32 and bf16 at every shape and form a
@@ -50,16 +51,9 @@ exits non-zero without a result line:
    the same call with ``ModelConfig(compute_dtype="bfloat16")`` and the
    same seeded weights, in turns with f32 with TF32 on and off: ms per call,
    frames/s, peak memory, each under the profiler with its device time by
-   kind of kernel (BN, ReLU, add, layout, convolutions, the pool kernel),
-   bf16 against f32 (TF32 off) at ``tests/test_bf16.py``'s bounds, and
-   ``eval_sequences_batched`` in bf16; then ``[bench]``: the tracker bench
-   ``python -m umetrack_torch.bench --no-reference`` in subprocesses, (a)
-   as it runs by default (bf16, S=64 x T=16, the pool kernel), (b) with
-   ``--dtype float32 --breakdown``, (c) ``--sampler kernel_win`` and (d)
-   ``--sampler kernel_full`` at S=8 x T=4: its one JSON line, a
-   torch-counted 3.8-4.0 GFLOP a frame, the warp launches equal to the
-   calls the run made, its ``[bench]`` line with the card's name and power
-   limit, and beside (a) this phase's bf16 ms a call;
+   kind of kernel (``portbench/trace.py::kind_of``, the kinds of the
+   benchmark's breakdown), bf16 against f32 (TF32 off) at
+   ``tests/test_bf16.py``'s bounds, and ``eval_sequences_batched`` in bf16;
 5. the two single-image warp kernels (``warp_image_full``,
    ``warp_image_windowed``) against their plain version: the torch_data
    shape (512 images of 480 x 640, uint8 and f32, coordinate fields from
@@ -80,8 +74,9 @@ exits non-zero without a result line:
    full-kernel launch per batch);
 7. card against CPU, TF32 off: the tracker at S=2, T=4 (1e-3 rad, 0.1 mm),
    the torch_data ``_run_batch`` on 2 sequences of T=4 (0.1 mm, crops within
-   2e-3), and on the card the tracker with ``sampler="kernel_win"`` against
-   the pool sampler;
+   2e-3), and on the card the tracker with ``sampler="kernel_win"`` and
+   ``"kernel_full"`` against the pool sampler (one launch of that kernel a
+   call and none of the other two warp kernels);
 8. the raw_data evaluation path with the trained checkpoint
    (``checkpoints/synthetic.msgpack`` through the port's own loader), full
    width, f32: the loaded model's two heads on the card against the CPU;
@@ -331,19 +326,6 @@ R5_CHECKPOINT = os.path.join(HERE, "checkpoints", "synthetic_r5.msgpack")
 # and inputs, so only a different choice of cuDNN algorithm could part them
 DIAGNOSE_RTOL = 1e-4
 LOOP_SEQS, LOOP_T, LOOP_STEPS, LOOP_BATCH = 4, 8, 2, 4
-# the tracker bench (python -m umetrack_torch.bench) as subprocesses: the
-# default (bf16, S=64 x T=16, the pool kernel), f32 with the prep breakdown,
-# and the two single-image kernels at a small shape
-BENCH_SMALL = (8, 4)  # S, T of runs (c) and (d)
-BENCH_RUNS = (("(a) default", []), ("(b) f32 breakdown", ["--dtype", "float32", "--breakdown"]),
-              *((f"({run}) {sampler}", ["--sampler", sampler, "--seqs", str(BENCH_SMALL[0]),
-                                        "--t", str(BENCH_SMALL[1])])
-                for run, sampler in (("c", "kernel_win"), ("d", "kernel_full"))))
-BENCH_DEPTH = 4  # bench_ours' pipeline_depth
-# the one warp kernel a track_sequences_batched call launches, once, by sampler
-BENCH_KERNEL = {"kernel": "warp_pool", "kernel_win": "warp_image_windowed", "kernel_full": "warp_image_full"}
-BENCH_GFLOP = (3.8, 4.0)  # torch-counted GFLOP a frame of ModelConfig() (3.915 on the CPU)
-BENCH_TIMEOUT_S = 240
 # [tp]: groups of processes sharing card 0 over gloo, a (world / 2, 2) mesh;
 # the eval bounds are tests/test_parallel.py's sharded-eval ones (TRAINED's
 # for the checkpoint on a data split, where each rank fits the crops of its
@@ -396,9 +378,6 @@ TP_GATES = {(2, True): None, (2, False): ("images nudged", "another order"),
             (4, True): ("images nudged", "data split")}
 TP_FORWARD_TOL = 1e-4
 TP_TIMEOUT_S = 300
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
-OPS_PER_SAMPLE = 17  # f32 operations of one bilinear sample, roughly
 NEAREST_LIBRARY = "torch.nn.functional.grid_sample on an f32 copy: NOT the same function"
 # the one-pass BatchNorm kernel: the backbone's crops in a track_sequences_batched
 # call at the bench shape (S x T frames x 2 hands x 2 view slots), the rows
@@ -847,32 +826,20 @@ def phase_build():
     return wp_mod, wi_mod, hosts[1][1]
 
 
-def touched_source_bytes(pool, coords, src_idx):
-    """Distinct pool bytes the valid samples' four taps read."""
-    import torch
-    from umetrack_torch.ops.resample import _sample_prep
-
-    m, h, w = pool.shape
-    valid, x0, y0, _, _ = _sample_prep(h, w, coords)
-    base = (src_idx.to(torch.int64).reshape(-1, 1, 1) * (h * w) + y0 * w + x0)[valid]
-    mask = torch.zeros(m * h * w, dtype=torch.bool, device=pool.device)
-    for off in (0, 1, w, w + 1):
-        mask[base + off] = True
-    return int(mask.sum()) * pool.element_size()
-
-
 def byte_bound(pool, coords, src_idx):
-    """(bound_ms, bound_by, text): coordinates read once, output written
+    """(bound_ms, bound_by, text): ``portbench/yardstick.py::pool_warp_bound_s``,
+    the benchmark's pool-warp bound (coordinates read once, output written
     once, and the distinct source bytes touched, at the card's memory rate;
-    against the sample arithmetic at the card's f32 rate."""
-    taps = touched_source_bytes(pool, coords, src_idx)
+    against the sample arithmetic at the card's f32 rate), and its terms."""
+    from portbench import yardstick
+
+    bound_ms = yardstick.pool_warp_bound_s(pool, coords, src_idx) * 1e3
+    taps = yardstick.touched_source_bytes(pool, coords, src_idx)
     n_pix = coords.numel() // 2
-    moved = coords.numel() * 4 + n_pix * 4 + taps
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_pix * OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
-    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    ops_ms = n_pix * yardstick.OPS_PER_SAMPLE / yardstick.F32_OPS_PER_S * 1e3
+    bound_by = "bytes" if bound_ms > ops_ms else "operations"
     text = (f"{bound_by}: coords {coords.numel() * 4 / 1e6:.1f} MB + out {n_pix * 4 / 1e6:.1f} MB "
-            f"+ touched taps {taps / 1e6:.1f} MB at 3.35 TB/s")
+            f"+ touched taps {taps / 1e6:.1f} MB at {yardstick.HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     return bound_ms, bound_by, text
 
 
@@ -1333,6 +1300,7 @@ def bn_row(bn_mod, form, label, n, c, side, dtype, seed, card, fmt="nchw"):
     timed.  Channels-last takes 16-byte vectors where they split the
     channels."""
     import torch
+    from portbench import yardstick
 
     wrapper = bn_mod.batch_norm_act
     kw = bn_operands(form, n, c, side, side, dtype, seed, fmt=fmt)
@@ -1345,11 +1313,12 @@ def bn_row(bn_mod, form, label, n, c, side, dtype, seed, card, fmt="nchw"):
     kernel_ms = device_ms(lambda: bn_mod._launch(*args), name="batch_norm_act")
     plain_ms = median_ms(lambda: bn_mod.batch_norm_act_plain(**kw), reps=5, warmup=1)
     moved = bn_bytes(kw, out)
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = moved / yardstick.HBM_BYTES_PER_S * 1e3
     log(f"[bn_act] {name}: N={n}, {ms:.4f} ms a call of the wrapper (median of 20), "
         f"kernel alone {kernel_ms:.4f} ms (device time, the profiler saw {device_ms.seen} "
         f"of 20), plain {plain_ms:.4f} ms (the unfused PyTorch sequence, library_ms), "
-        f"bound {bound_ms:.4f} ms (bytes: {moved / 1e6:.1f} MB at 3.35 TB/s), share "
+        f"bound {bound_ms:.4f} ms (bytes: {moved / 1e6:.1f} MB at "
+        f"{yardstick.HBM_BYTES_PER_S / 1e12:.2f} TB/s), share "
         f"{bound_ms / kernel_ms:.3f} of the kernel alone, {bound_ms / ms:.3f} of a call [{card}]")
     del kw, out, args
     torch.cuda.empty_cache()
@@ -1703,35 +1672,21 @@ def phase_slice(wp_mod, model, rigs, seqs, hands, card):
 
 
 def profile_call(fn):
-    """One call of ``fn`` under torch.profiler: its wall ms, device ms (the
-    kernels' time; one stream, so they do not overlap), kernel launches and
-    the rows (device us, count, name) by kernel, largest first."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One call of ``fn`` traced by ``portbench/trace.py::device_trace``, as
+    the benchmark traces a run: the traced window's wall ms, device ms (the
+    operations' time; one stream, so they do not overlap), device launches
+    and the rows (device us, count, name) by operation, largest first."""
+    from portbench.trace import Spans, device_trace
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device kernels only, not the ops launching them nor the ranges that
-    # ``record_function`` marks on the device (``Optimizer.step``)
-    annotations = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key in annotations:
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = e.self_cuda_time_total
-        if dev > 0:
-            rows.append((dev, e.count, e.key))
-    rows.sort(reverse=True)
+    trace = device_trace(fn, Spans())
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for name, start, end in trace.ops:
+        by_name[name][0] += (end - start) * 1e6
+        by_name[name][1] += 1
+    rows = sorted(((us, count, name) for name, (us, count) in by_name.items()), reverse=True)
     total = sum(r[0] for r in rows)
     check(total > 0, "the profiler saw no device time")
-    return dict(wall_ms=wall_us / 1e3, device_ms=total / 1e3, launches=sum(r[1] for r in rows), rows=rows)
+    return dict(wall_ms=trace.window_s * 1e3, device_ms=total / 1e3, launches=len(trace.ops), rows=rows)
 
 
 def phase_profile(fn, label, kernel_name, card, top=15):
@@ -1750,28 +1705,15 @@ def phase_profile(fn, label, kernel_name, card, top=15):
     return prof
 
 
-# Kinds of device kernel by a piece of their name (lower case), first match
-# wins: the split that PERF.md's breakdowns of the tracker use.  cuDNN's
-# convolutions come as implicit GEMMs, sgemm convolutions, Winograd or FFT
-# (the FFT's complex GEMMs are ``gemm_cf32``); the crop geometry's real
-# GEMMs stay under "other".
-KERNEL_KINDS = (("warp_pool", ("warp_pool_kernel",)), ("layout", ("nchwtonhwc", "nhwctonchw")),
-                ("conv", ("fprop", "convolve", "conv2d", "implicit_gemm", "winograd", "fft",
-                          "gemm_cf32")),
-                ("BN", ("bn_fw", "batch_norm")), ("ReLU", ("clamp", "relu")), ("add", ("_add<",)),
-                ("max-pool", ("max_pool",)), ("copy/cast", ("copy",)))
-
-
 def kernel_shares(prof):
-    """{kind: share of device time} of a :func:`phase_profile` result, the
-    rest under "other"."""
+    """{kind: share of device time} of a :func:`profile_call` result, by
+    the kinds of the benchmark's breakdown (``portbench/trace.py::kind_of``)."""
+    from portbench.trace import KERNEL_KINDS, kind_of
+
     total = sum(r[0] for r in prof["rows"])
-    shares = {kind: 0.0 for kind, _ in KERNEL_KINDS}
-    shares["other"] = 0.0
+    shares = dict.fromkeys([kind for kind, _ in KERNEL_KINDS] + ["other"], 0.0)
     for dev, _, key in prof["rows"]:
-        name = key.lower()
-        kind = next((k for k, parts in KERNEL_KINDS if any(p in name for p in parts)), "other")
-        shares[kind] += dev / total
+        shares[kind_of(key)] += dev / total
     return shares
 
 
@@ -1784,6 +1726,7 @@ def phase_layout(model, rigs, seqs, hands, card):
     by layout; the two calls' angles against each other (both TF32, other
     cuDNN kernels)."""
     import torch
+    from portbench.trace import kind_of
     from umetrack_torch.models import backbone
     from umetrack_torch.ops.bn_act import batch_norm_act
     from umetrack_torch.tracker import HandTracker
@@ -1803,8 +1746,7 @@ def phase_layout(model, rigs, seqs, hands, card):
         finally:
             backbone.channels_last_rule = rule
         angles[label] = res.joint_angles
-        counts[label] = sum(n for _, n, key in prof["rows"] if "nchwtonhwc" in key.lower()
-                            or "nhwctonchw" in key.lower())
+        counts[label] = sum(n for _, n, key in prof["rows"] if kind_of(key) == "layout")
         kinds = kernel_shares(prof)
         log(f"[layout] one track_sequences_batched replay S={S_BENCH} T={T_BENCH} f32 (TF32 "
             f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}), {label}: {counts[label]} "
@@ -2067,30 +2009,40 @@ def track_diff(a, b):
     return da, dw
 
 
-def phase_cpu_vs_card(model_cpu, model_cuda, wi_mod):
+def phase_cpu_vs_card(model_cpu, model_cuda, wp_mod, wi_mod):
+    """The tracker at S_SMALL x T_SMALL, TF32 off: the card against the CPU;
+    then on the card each per-slot sampler against the pool sampler, with
+    one launch of its kernel a call and none of the other two warp kernels."""
     from umetrack_torch.tracker import HandTracker, TrackerConfig
     from umetrack_torch.utils.synthetic import make_sequences
 
     rigs, seqs, hands = make_sequences(S_SMALL, T_SMALL, seed=100, device="cpu")
     on_card = (rigs.to("cuda"), seqs.to("cuda"), hands.to("cuda"))
+    kernels = (wp_mod.warp_pool, wi_mod.warp_image_windowed, wi_mod.warp_image_full)
+    per_slot = {"kernel_win": wi_mod.warp_image_windowed, "kernel_full": wi_mod.warp_image_full}
     with tf32_off():
         res_cpu, _ = HandTracker(model_cpu, device="cpu").track_sequences_batched(rigs, seqs, hands)
         res_gpu, _ = HandTracker(model_cuda, device="cuda").track_sequences_batched(*on_card)
-        before = wi_mod.warp_image_windowed.launches
-        res_win, _ = HandTracker(
-            model_cuda, TrackerConfig(sampler="kernel_win"), device="cuda"
-        ).track_sequences_batched(*on_card)
-        check(wi_mod.warp_image_windowed.launches == before + 1,
-              "sampler='kernel_win': not one warp_image_windowed launch per call")
+        res_slot = {}
+        for sampler, kernel in per_slot.items():
+            before = [k.launches for k in kernels]
+            res_slot[sampler], _ = HandTracker(
+                model_cuda, TrackerConfig(sampler=sampler), device="cuda"
+            ).track_sequences_batched(*on_card)
+            made = {k.__name__: k.launches - n for k, n in zip(kernels, before)}
+            want = {k.__name__: int(k is kernel) for k in kernels}
+            check(made == want, f"sampler={sampler!r}: warp launches {made} in one call, expected {want}")
     da, dw = track_diff(res_cpu, res_gpu.to("cpu"))
     log(f"[cpu-vs-card] S={S_SMALL} T={T_SMALL} TF32 off: valid equal, "
         f"max angle diff {da:.3e} rad (<= 1e-3), max wrist diff {dw:.3e} mm (<= 0.1)")
     check(da <= 1e-3, f"angles differ by {da} rad")
     check(dw <= 0.1, f"wrist translations differ by {dw} mm")
-    da, dw = track_diff(res_gpu, res_win)
-    log(f"[cpu-vs-card] on the card, sampler='kernel_win' against the pool sampler: "
-        f"max angle diff {da:.3e} rad (<= 1e-3), max wrist diff {dw:.3e} mm (<= 0.1)")
-    check(da <= 1e-3 and dw <= 0.1, f"kernel_win vs pool: {da} rad, {dw} mm")
+    for sampler, kernel in per_slot.items():
+        da, dw = track_diff(res_gpu, res_slot[sampler])
+        log(f"[cpu-vs-card] on the card, sampler={sampler!r} against the pool sampler: one "
+            f"{kernel.__name__} launch a call, no other warp kernel; max angle diff {da:.3e} rad "
+            f"(<= 1e-3), max wrist diff {dw:.3e} mm (<= 0.1)")
+        check(da <= 1e-3 and dw <= 0.1, f"{sampler} vs pool: {da} rad, {dw} mm")
 
 
 def phase_torchdata_cpu_vs_card(model_cpu, model_cuda):
@@ -2837,58 +2789,6 @@ def phase_process_group(model, tally, rigs, seqs, hands, unsharded, card):
             f"running stats within {d_stats:.3e} (<= {STATS_TOL})")
     log(f"[process-group] the machine has {torch.cuda.device_count()} card(s): world size 1 only, no "
         f"multi-GPU number is measured [{card}]")
-
-
-# ---- the tracker bench ------------------------------------------------------
-
-
-def phase_bench(bf16_ms, card):
-    """``[bench]``: ``python -m umetrack_torch.bench --no-reference`` in a
-    subprocess for each of BENCH_RUNS, each given BENCH_TIMEOUT_S (a
-    failure, a time-out or a malformed line fails the script): its one JSON
-    line, a torch-counted FLOP count in BENCH_GFLOP, and the warp launches
-    equal to the calls the run made (the warm-up, the FLOP pass, the
-    pipelined calls and under ``--breakdown`` the prep warm-up and reps),
-    one of BENCH_KERNEL's kernel for the run's sampler a call and none of
-    the others.  Returns the launches by kernel and run."""
-    import re
-
-    from umetrack_torch.bench import BREAKDOWN_REPS, WARP_KERNELS
-
-    by_run = {kernel.__name__: {} for kernel in WARP_KERNELS}
-    for label, args in BENCH_RUNS:
-        t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, "-m", "umetrack_torch.bench", "--no-reference", *args], cwd=HERE,
-                              capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-        wall_s = time.perf_counter() - t0
-        check(done.returncode == 0, f"[bench] {label}: exit {done.returncode}:\n{done.stderr[-3000:]}")
-        lines = done.stdout.strip().splitlines()
-        check(len(lines) == 1, f"[bench] {label}: stdout {done.stdout!r}")
-        result = json.loads(lines[-1])
-        check(list(result) == ["metric", "value", "unit", "vs_baseline"]
-              and result["metric"] == "tracker_frames_per_s_per_chip" and result["unit"] == "frames/s"
-              and result["value"] > 0 and result["vs_baseline"] is None, f"[bench] {label}: {result}")
-        line = [ln for ln in done.stderr.splitlines() if ln.startswith("[bench]")]
-        check(len(line) == 1, f"[bench] {label}: stderr {done.stderr[-3000:]}")
-        line = line[0]
-        flops = re.search(r"torch-counted ([0-9.]+) GFLOP/frame", line)
-        check(flops is not None and BENCH_GFLOP[0] <= float(flops.group(1)) <= BENCH_GFLOP[1],
-              f"[bench] {label}: FLOPs {line}")
-        launches = {name: int(n) for name, n in re.findall(r"(warp_\w+) (\d+)", line)}
-        sampler = args[args.index("--sampler") + 1] if "--sampler" in args else "kernel"
-        calls = BENCH_DEPTH + 2 + ("--breakdown" in args) * (1 + BREAKDOWN_REPS)
-        want = {kernel.__name__: calls * (kernel.__name__ == BENCH_KERNEL[sampler]) for kernel in WARP_KERNELS}
-        check(launches == want, f"[bench] {label}: warp launches {launches}, expected {want} ({calls} calls)")
-        check("% of" in line if "H100" in card else True, f"[bench] {label}: no share of the peak: {line}")
-        for name, n in launches.items():
-            if n:
-                by_run[name][f"bench {label}"] = n
-        beside = (f"; phase 4's bf16 track_sequences_batched on smooth-noise sequences: {bf16_ms['bf16']:.1f} "
-                  f"ms a call (host clock around one synchronised call, median of {TRACK_CALLS})"
-                  if label.startswith("(a)") else "")
-        log(f"{line} -- {label}: {result['value']} frames/s, the run {wall_s:.1f} s with start-up{beside}")
-        log(f"[bench] {label} stdout: {lines[-1]}")
-    return by_run
 
 
 # ---- the tensor-parallel model axis ----------------------------------------
@@ -4059,8 +3959,7 @@ def phase_bf16_tracker(wp_mod, model32, model16, tally, rigs, seqs, hands, card)
     (median of 3, the three variants in turns), frames/s, peak memory, one
     call of each under the profiler with its device time split by kind of
     kernel; bf16 against f32 (TF32 off) at ``tests/test_bf16.py``'s bounds;
-    then ``eval_sequences_batched`` in bf16 (one launch a call).  Returns
-    the median ms a call of each variant."""
+    then ``eval_sequences_batched`` in bf16 (one launch a call)."""
     import contextlib
 
     import torch
@@ -4114,9 +4013,8 @@ def phase_bf16_tracker(wp_mod, model32, model16, tally, rigs, seqs, hands, card)
     check(state16.temporal.mem_features.dtype == torch.bfloat16, "bf16: the carry is not bf16")
     check(bool(torch.isfinite(res16.joint_angles).all() & torch.isfinite(res16.wrist_xfs).all()
                & torch.isfinite(state16.temporal.mem_features.float()).all()), "bf16: non-finite output")
-    medians = {}
     for label in times:
-        ms = medians[label] = sorted(times[label])[len(times[label]) // 2]
+        ms = sorted(times[label])[len(times[label]) // 2]
         log(f"[bf16] track_sequences_batched S={s} T={t} full ModelConfig() {label}: {ms:.1f} ms/call "
             f"median of {TRACK_CALLS} ({', '.join(f'{m:.1f}' for m in times[label])}; in turns with the "
             f"other two), {s * t / ms * 1e3:.1f} frames/s, peak mem {peaks[label]:.2f} GiB [{card}]")
@@ -4151,7 +4049,6 @@ def phase_bf16_tracker(wp_mod, model32, model16, tally, rigs, seqs, hands, card)
     log(f"[bf16] eval_sequences_batched S={s} T={t} bf16: one warp_pool launch a call, global mean "
         f"{float(mean):.2f} mm, {ms[1]:.1f} ms/call median of 3 ({', '.join(f'{m:.1f}' for m in ms)}), "
         f"{s * t / ms[1] * 1e3:.1f} frames/s [{card}]")
-    return medians
 
 
 def phase_bf16_streaming(wp_mod, models, tally, card):
@@ -4947,20 +4844,15 @@ def main():
     # before each of their entry-point calls and reads it just after
     model16 = gate_weights(make_model(ModelConfig(compute_dtype=BF16), device="cuda"))
     bf16_tally = LaunchTally(wp_mod.warp_pool, batch_norm_act)
-    bf16_ms = phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
+    phase_bf16_tracker(wp_mod, model_cuda, model16, bf16_tally, rigs, seqs, hands, card)
     bf16_tracker_launches = bf16_tally.total
     del rigs, seqs, hands
     free_card()
 
-    # the tracker bench: python -m umetrack_torch.bench in subprocesses
-    t_bench = time.perf_counter()
-    bench_launches = phase_bench(bf16_ms, card)
-    log(f"[bench] the phase took {time.perf_counter() - t_bench:.1f} s")
-
     win_launches, full_launches, win_bf16 = phase_torchdata_slice(wp_mod, wi_mod, model_cuda, card)
 
     model_cpu = gate_weights(make_model(ModelConfig(), device="cpu"))
-    phase_cpu_vs_card(model_cpu, model_cuda, wi_mod)
+    phase_cpu_vs_card(model_cpu, model_cuda, wp_mod, wi_mod)
     phase_torchdata_cpu_vs_card(model_cpu, model_cuda)
 
     # the raw_data evaluation slice: ``tally`` sets the pool kernel's counter
@@ -5051,21 +4943,19 @@ def main():
                       "bf16 tracker and batched eval": bf16_tracker_launches,
                       "bf16 raw_data eval": eval16_tally.total,
                       **{path: n for path, n in tp_launches.items() if "eval" in path},
-                      **{f"accuracy: {label}": got[0] for label, got in acc.items() if got[0]},
-                      **bench_launches["warp_pool"]},
+                      **{f"accuracy: {label}": got[0] for label, got in acc.items() if got[0]}},
                      pool_kern, eval_shapes + [train_rows["warp_pool"]]),
         kernel_entry("warp_image_windowed", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:174",
                      {"torch_data": win_launches, "train app 480 x 640 tree": tree_launches,
-                      "bf16 torch_data": win_bf16, **bench_launches["warp_image_windowed"]},
+                      "bf16 torch_data": win_bf16},
                      image_kern["warp_image_windowed"], [train_rows["warp_image_windowed"]]),
         kernel_entry("warp_image_full", "umetrack_torch/csrc/warp_image.cu",
                      "umetrack_tpu/ops/pallas_resample.py:68",
                      {"torch_data 120 x 160": full_launches, "train app synthetic": syn_launches,
                       "distill": distill_full, "bf16 train app synthetic": syn_bf16,
                       **{path: n for path, n in tp_launches.items() if "train app" in path},
-                      **{f"accuracy: {label}": got[1] for label, got in acc.items() if got[1]},
-                      **bench_launches["warp_image_full"]},
+                      **{f"accuracy: {label}": got[1] for label, got in acc.items() if got[1]}},
                      image_kern["warp_image_full"], [train_rows["warp_image_full"], acc_full_row]),
         bn_entry(bn_rows, bn_edge_err,
                  {"tracker": bn_slice, "compiled steps": graph_tally.bn_total, "raw_data eval": tally.bn_total,

@@ -2,8 +2,8 @@
 ``chip_smoke.py`` imports JAX, flax, msgpack (the port has its own codec),
 orbax, tensorstore or zstandard (it has its own zstd decoder and OCDBT
 store), the JAX package, the repository's ``scripts`` (the port's
-drivers are ``umetrack_torch/scripts/``), its ``bench.py`` (the port's is
-``umetrack_torch/bench.py``) or the tests' helpers; OpenCV is imported only inside the mp4 decoder and the
+drivers are ``umetrack_torch/scripts/``), its ``bench.py`` (the port is
+measured by ``portbench``) or the tests' helpers; OpenCV is imported only inside the mp4 decoder and the
 stroke renderer, which nothing on the GPU's path calls; and the kernel
 wrappers take the plain version for CPU tensors."""
 import ast
@@ -39,7 +39,7 @@ NEW_MODULES = (
     "data/native.py",
     "utils/_zstd.py", "utils/ocdbt.py", "utils/orbax.py",
     "scripts/resident_train.py", "scripts/diagnose_ckpt.py", "scripts/accuracy_loop.py",
-    "bench.py", "tracker/compiled.py", "ops/bn_act.py",
+    "tracker/compiled.py", "ops/bn_act.py",
 )
 
 
@@ -109,7 +109,7 @@ import importlib
 for name in ("tracker.video", "utils.synthetic", "utils.render", "apps.sequence_eval",
              "apps.run_eval_known_skeleton", "apps.run_eval_unknown_skeleton", "apps.load_eval",
              "config", "parallel.resident", "apps.train", "apps.distill",
-             "scripts.resident_train", "scripts.diagnose_ckpt", "scripts.accuracy_loop", "bench"):
+             "scripts.resident_train", "scripts.diagnose_ckpt", "scripts.accuracy_loop"):
     importlib.import_module("umetrack_torch." + name)
 from umetrack_torch.utils import synthetic
 labels, images = synthetic.make_labels_dict(1, rng_seed=0, render=False, device="cpu")

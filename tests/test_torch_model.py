@@ -230,6 +230,41 @@ def test_channels_last_forward_matches_nchw(models, inputs, head, monkeypatch):
     _close(got_state.mem_features, want_state.mem_features.numpy())
 
 
+@pytest.mark.parametrize("shape, channels_last, copied", [
+    ((2, 1, 5, 7), False, False),
+    ((6, 4, 1, 1), False, False),
+    ((2, 3, 5, 7), False, True),
+    ((2, 3, 5, 7), True, False),
+], ids=["one-channel image", "1x1 kernel", "nchw", "already channels-last"])
+def test_as_channels_last(shape, channels_last, copied):
+    """A one-channel image or a 1x1 kernel is restrided as a view, an NCHW
+    tensor copied, a channels-last one given back on its own storage; all
+    come back with channels-last strides and the same values."""
+    t = torch.arange(float(np.prod(shape))).reshape(shape)
+    if channels_last:
+        t = t.contiguous(memory_format=torch.channels_last)
+    out = backbone.as_channels_last(t)
+    _, c, h, w = shape
+    assert out.stride() == (h * w * c, 1, w * c, c)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out, t)
+    assert (out.untyped_storage().data_ptr() != t.untyped_storage().data_ptr()) == copied
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_conv_without_bias_on_the_cpu(bias):
+    """On the CPU the convolution adds its own bias: ``without_bias`` gives
+    the layer's output, bias included where it has one, and leaves None."""
+    torch.manual_seed(0)
+    conv = backbone.Conv(3, 4, 3, padding=1, bias=bias)
+    x = torch.randn(2, 3, 6, 6)
+    with torch.no_grad():
+        y, left = conv.without_bias(x)
+        want = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
+    assert left is None
+    assert torch.equal(y, conv(x).detach()) and torch.equal(y, want)
+
+
 def test_procrustes_quat_matches_svd_oracle_and_jax():
     rng = np.random.default_rng(5)
     src = rng.standard_normal((64, 7, 3)).astype(np.float32) * 0.1

@@ -18,6 +18,7 @@ from umetrack_tpu.tracker.tracker import track_sequences_batched as jbatched
 from umetrack_tpu.tracker.types import TrackState as JTrackState
 from umetrack_torch.kinematics.hand import stack_hand_models
 from umetrack_torch.models import ModelConfig, UmeTrackNet, from_flax_variables
+from umetrack_torch.ops.resample import bilinear_sample_pool_plain
 from umetrack_torch.tracker import HandTracker, TrackerConfig, sequence_landmarks
 from umetrack_torch.tracker import tracker as port_tracker
 from umetrack_torch.tracker.types import CameraRig, FrameObservation
@@ -159,9 +160,40 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(setup, monkeypatch):
             tracker.model, TrackerConfig(sampler="kernel"), rig, seq,
             tracker.init_state(), hand, device="cpu",
         )
-    for name in ("kernel_win", "kernel_full"):
-        with pytest.raises(ValueError, match="CUDA"):
-            TrackerConfig(sampler=name).resolved_sampler(torch.device("cpu"))
     with pytest.raises(ValueError, match="unknown sampler"):
         TrackerConfig(sampler="pallas_win").resolved_sampler(torch.device("cpu"))
     assert isinstance(rig, CameraRig) and isinstance(seq, FrameObservation)
+
+
+@pytest.mark.parametrize("sampler", ["kernel", "kernel_win", "kernel_full"])
+def test_kernel_sampler_on_the_cpu_raises(setup, sampler):
+    """A kernel sampler needs CUDA tensors: the batched entry refuses it on
+    the CPU instead of falling back to a plain version."""
+    rig, seq, hand = setup["seq"]
+    model = setup["tracker"].model
+    rigs, seqs = rig.map(lambda a: a[None]), seq.map(lambda a: a[None])
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        port_tracker.track_sequences_batched(
+            model, TrackerConfig(sampler=sampler), rigs, seqs, setup["tracker"].init_state(),
+            stack_hand_models([hand]), device="cpu",
+        )
+
+
+def test_pool_warp_operands_give_the_batched_crops(setup):
+    """``pool_warp_operands`` (what the pool kernel is checked and timed on)
+    sampled by the plain pool sampler are the crops that the batched entry
+    hands the model, before its ``/255`` and view mask."""
+    rig, seq, hand = setup["seq"]
+    rigs = rig.map(lambda a: torch.stack([a, a]))
+    seqs = seq.map(lambda a: torch.stack([a, a.flip(0)]))
+    hands = stack_hand_models([hand, hand])
+    config = TrackerConfig()
+    pool, coords, src_idx = port_tracker.pool_warp_operands(config, rigs, seqs, hands)
+    assert pool.shape == (2 * T_FRAMES * 4, 480, 640) and src_idx.dtype == torch.int32
+    warped = bilinear_sample_pool_plain(pool, coords, src_idx)
+    crop_sets, crops = port_tracker._prepare_sequences_merged(config, rigs, seqs, hands, 1, "plain")
+    t, rows, v = crops.shape[:3]
+    want = warped.reshape(2, t, 2, v, *crops.shape[-2:]).transpose(0, 1).reshape(crops.shape) / 255.0
+    want = torch.where(crop_sets.view_valid[..., None, None], want, torch.zeros_like(want))
+    assert (t, rows) == (T_FRAMES, 4) and crop_sets.view_valid.any()
+    torch.testing.assert_close(crops, want, rtol=0, atol=0)

@@ -540,26 +540,6 @@ def track_sequences_batched(
     ), name="track_sequences_batched", config=config, min_num_crops=min_num_crops)
 
 
-def _track_sequences_batched_eager(
-    model: UmeTrackNet,
-    config: TrackerConfig,
-    rigs: CameraRig,
-    seqs: FrameObservation,
-    init_state: TrackState,
-    hand_models_mm: HandModel,
-    min_num_crops: int = 1,
-    skel_hand_models_mm: Optional[HandModel] = None,
-    device=None,
-) -> Tuple[FrameResult, TrackState]:
-    """:func:`track_sequences_batched` run eagerly, never captured: for
-    callers inside process-group collectives, which a CUDA graph cannot
-    capture, and for counting FLOPs (a replay passes no dispatcher)."""
-    return _entry(_SEQUENCES_BATCHED.eager, model, device, dict(
-        rigs=rigs, seqs=seqs, init_state=init_state, hand_models_mm=hand_models_mm,
-        skel_hand_models_mm=skel_hand_models_mm,
-    ), name="track_sequences_batched_eager", config=config, min_num_crops=min_num_crops)
-
-
 def _first_n_valid_mean(
     scales: torch.Tensor,  # [..., K] in the order the samples are appended
     valid: torch.Tensor,  # [..., K] bool
